@@ -1,0 +1,45 @@
+"""The layers of the model families (counterpart of
+``tpu2048/models/layers.py``: ``linear`` and ``layer_norm``).
+
+Parameters carry the JAX package's names (``w``/``b`` for a linear layer,
+``g``/``b`` for a layer norm), so a module's ``state_dict`` keys are the JAX
+parameter tree's key paths joined with dots.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LN_EPS = 1e-5  # torch LayerNorm default, as in the JAX package
+
+
+class Linear(nn.Module):
+    """``y = x @ w.T (+ b)`` with ``w`` of shape (out, in). Initialised as
+    the reference initialises a Linear: kaiming-uniform (relu) weight, zero
+    bias."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+        super().__init__()
+        bound = math.sqrt(6.0 / in_dim)
+        self.w = nn.Parameter(torch.empty(out_dim, in_dim).uniform_(-bound, bound))
+        self.b = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.w, self.b)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis with gain ``g`` and bias ``b``."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(dim))
+        self.b = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, (x.shape[-1],), self.g, self.b, self.eps)

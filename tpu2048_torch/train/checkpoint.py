@@ -1,0 +1,144 @@
+"""Reader for the JAX package's checkpoints, and the weight carrier.
+
+Counterpart of the reading half of ``tpu2048/train/checkpoint.py``. A
+checkpoint is ``<name>.npz`` (plus a human-readable ``<name>.json`` mirror of
+its manifest). Format v2 stores every leaf under its JAX key path, such as
+``['params']['blocks'][0]['lin']['w']``, and embeds the manifest under
+``__manifest__``. Round-1 files (format v1) store the leaves as ``leaf_<i>``
+in the JAX tree's flatten order.
+
+The port's parameter names are those key paths joined with dots
+(``blocks.0.lin.w``), so carrying weights across is a renaming:
+:func:`params_to_state_dict`.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import zipfile
+import zlib
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_MANIFEST_KEY = "__manifest__"
+_CORRUPTION_ERRORS = (zipfile.BadZipFile, zlib.error, EOFError, OSError)
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint file is unreadable: truncated, bit-rotted, or not an npz."""
+
+
+def parse_key_path(key: str) -> tuple:
+    """``"['blocks'][0]['lin']['w']"`` -> ``("blocks", 0, "lin", "w")``."""
+    parts, pos = [], 0
+    for m in _KEY_PART.finditer(key):
+        if m.start() != pos:
+            break
+        name, index, attr = m.groups()
+        parts.append(int(index) if index is not None else (name if name is not None else attr))
+        pos = m.end()
+    if pos != len(key) or not parts:
+        raise ValueError(f"not a JAX key path: {key!r}")
+    return tuple(parts)
+
+
+def _flatten(node, path=()):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _flatten(v, path + (k,))
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from _flatten(v, path + (i,))
+    else:
+        yield path, node
+
+
+def params_to_state_dict(params: dict) -> dict:
+    """The weight carrier: the JAX package's MLP parameters, as a nested dict
+    (the params pytree, leaves convertible by ``np.asarray``) or as a dict
+    keyed by key path relative to the params tree, -> a ``state_dict`` of
+    float tensors with the port's names."""
+    if params and all(isinstance(k, str) and k.startswith("[") for k in params):
+        items = [(parse_key_path(k), v) for k, v in params.items()]
+    else:
+        items = list(_flatten(params))
+    return {".".join(map(str, path)): torch.tensor(np.asarray(v))
+            for path, v in items}
+
+
+def jax_flatten_order(names) -> list:
+    """``names`` (dotted parameter names) in the order ``jax.tree_util``
+    flattens the matching pytree: dict keys sorted, list items in order."""
+    def key(name):
+        return tuple(int(p) if p.isdigit() else p for p in name.split("."))
+    return sorted(names, key=key)
+
+
+def read_npz(path) -> tuple:
+    """(arrays keyed as stored, embedded manifest or None). Unreadable,
+    truncated or bit-rotted files raise :class:`CheckpointCorruptError`."""
+    try:
+        data = np.load(path)
+        files = set(data.files)
+    except _CORRUPTION_ERRORS + (ValueError,) as e:
+        raise CheckpointCorruptError(
+            f"checkpoint {path} is unreadable ({type(e).__name__}: {e}); "
+            "it may be truncated or corrupted on disk") from e
+    try:
+        with data:
+            manifest = (json.loads(str(data[_MANIFEST_KEY]))
+                        if _MANIFEST_KEY in files else None)
+            arrays = {k: data[k] for k in files if k != _MANIFEST_KEY}
+    except _CORRUPTION_ERRORS as e:
+        raise CheckpointCorruptError(
+            f"checkpoint {path} failed a CRC/read check mid-load "
+            f"({type(e).__name__}: {e}); it is corrupted on disk") from e
+    return arrays, manifest
+
+
+def checkpoint_exists(ckpt_dir, name: str) -> bool:
+    """True if ``<name>.npz`` is there with a manifest: embedded, or in the
+    ``.json`` mirror."""
+    d = Path(ckpt_dir)
+    npz = d / f"{name}.npz"
+    if not npz.exists():
+        return False
+    if (d / f"{name}.json").exists():
+        return True
+    try:
+        with zipfile.ZipFile(npz) as z:
+            return f"{_MANIFEST_KEY}.npy" in z.namelist()
+    except _CORRUPTION_ERRORS:
+        return False
+
+
+def state_dict_from_arrays(arrays: dict, names, source) -> dict:
+    """The ``params`` subtree of a checkpoint's ``arrays`` (from
+    :func:`read_npz` of file ``source``) as a state_dict holding exactly
+    ``names``, the model's parameter names.
+
+    Format v2: the leaves under ``['params']``. Format v1: a params-only file
+    whose ``leaf_<i>`` follow the JAX flatten order of ``names``. A missing
+    or extra parameter raises with its name."""
+    names = list(names)
+    if arrays and all(k.startswith("leaf_") for k in arrays):
+        if len(arrays) != len(names):
+            raise ValueError(
+                f"v1 checkpoint {source} has {len(arrays)} leaves, the model "
+                f"needs {len(names)}: structure changed, cannot load by order")
+        order = jax_flatten_order(names)
+        return {n: torch.tensor(arrays[f"leaf_{i}"]) for i, n in enumerate(order)}
+    prefix = "['params']"
+    params = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+    sd = params_to_state_dict(params)
+    missing = sorted(set(names) - set(sd))
+    extra = sorted(set(sd) - set(names))
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint {source} does not match the model: missing "
+            f"{missing[:5]}, unexpected {extra[:5]}")
+    return sd
