@@ -10,14 +10,24 @@ raises and the run exits non-zero:
   device   the card, its count, and nvidia-smi's name and power limit
   build    nvcc builds tpu2048_torch/ops/csrc/merge4.cu; ptxas' report
   kernel   the merge kernel against its plain PyTorch version on the card,
-           bit-exact, on edge boards and at N = 1, 7, 256, 4096, 65537
+           bit-exact, on edge boards, on boards of exponents 16-32 (a row of
+           two 31s among them), and at every N of CHECK_SIZES and on either
+           side of the kernel's path thresholds, through its own choice of
+           design and through each design forced
+  graph    one merge4_cuda call captured in a CUDA graph on 256 static
+           boards; new boards copied in and replayed: bit-exact against the
+           plain version on the new boards (an empty capture fails)
   timing   device time per call of the kernel (through its wrapper) and of
-           the plain version, and the host's enqueue time, beside the byte
-           bound (``tpu2048_torch.utils.profiling.device_ms``)
+           the launch floor (a one-element zero_()) at every N of
+           TIMING_SIZES, and of the plain version at the served batch, with
+           the host's enqueue time, beside the byte bound
+           (``tpu2048_torch.utils.profiling.device_ms``)
   serve    PolicyService on checkpoints_expG (H=384x3), predict in process
            on 1 and 256 boards, greedy and sampled
   eval     greedy run_eval of checkpoints_expG, 256 games
   kernels  one JSON line per the port's kernels: check, launches, times
+           (at the served batch, and per timed N with the launch floor and
+           the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
 after the eval phase: they count the main path only. The last line is
@@ -45,8 +55,9 @@ ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "checkpoints_expG"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MERGE_BYTES_PER_BOARD = 64 + 4 * (64 + 4 + 4 + 1)  # read once, write once
-CHECK_SIZES = (1, 7, 256, 4096, 65537)
-TIMING_SIZES = (256, 4096, 65536)
+CHECK_SIZES = (1, 7, 16, 255, 256, 257, 4096, 65537, 1048583)
+TIMING_SIZES = (1, 256, 4096, 32768, 65536, 1048576)
+GRAPH_BATCH = 256
 SERVE_BATCH = 256
 EVAL_GAMES = 256
 EVAL_MAX_STEPS = 4096
@@ -63,6 +74,16 @@ def random_boards(rng: np.random.Generator, n: int) -> np.ndarray:
     return np.where(rng.random((n, 4, 4)) < 0.35, 0, b).astype(np.int32)
 
 
+def high_boards(rng: np.random.Generator, n: int) -> np.ndarray:
+    """Exponents 16..32 (merge scores past 2^31 wrap, and are 0 from 2^32
+    on), a third of the cells empty; the first board has a row of two 31s."""
+    b = rng.integers(16, 33, size=(n, 4, 4))
+    b = np.where(rng.random((n, 4, 4)) < 0.35, 0, b).astype(np.int32)
+    b[0] = 0
+    b[0, 0, :2] = 31
+    return b
+
+
 def edge_boards() -> np.ndarray:
     empty = np.zeros((4, 4), np.int32)
     no_move = (np.indices((4, 4)).sum(0) % 2 + 1).astype(np.int32)  # 1/2 checkerboard
@@ -72,10 +93,12 @@ def edge_boards() -> np.ndarray:
     return np.stack([empty, no_move, all_same, one_big])
 
 
-def compare(boards: torch.Tensor) -> int:
-    """Kernel vs plain on ``boards`` (CUDA); raises unless bit-identical.
-    Returns the largest absolute difference over the four fields (0)."""
-    got = merge.merge4_cuda(boards)
+def compare(boards: torch.Tensor, path: str = "auto", got=None) -> int:
+    """Kernel (design ``path``, or the fields ``got`` it already wrote) vs
+    plain on ``boards`` (CUDA); raises unless bit-identical. Returns the
+    largest absolute difference over the four fields (0)."""
+    if got is None:
+        got = merge.merge4_cuda(boards, path=path)
     want = merge.merge4_plain(boards)
     torch.cuda.synchronize()
     err = 0
@@ -87,8 +110,8 @@ def compare(boards: torch.Tensor) -> int:
         if diff:
             n = boards.shape[0]
             bad = int((g != w).reshape(4, n, -1).any(-1).any(0).nonzero()[0])
-            raise AssertionError(f"{name} differs (max |diff| {diff}) first at "
-                                 f"board {bad}: {boards[bad].tolist()}")
+            raise AssertionError(f"{name} differs (max |diff| {diff}, path {path}, "
+                                 f"N={n}) first at board {bad}: {boards[bad].tolist()}")
         err = max(err, diff)
     return err
 
@@ -121,33 +144,64 @@ def main() -> None:
     # 3. kernel: bit-exact against the plain version on the card
     t0 = time.perf_counter()
     rng = np.random.default_rng(2048)
-    max_err = compare(torch.as_tensor(edge_boards(), device="cuda"))
-    for n in CHECK_SIZES:
-        boards = torch.as_tensor(random_boards(rng, n), device="cuda")
-        max_err = max(max_err, compare(boards))
-    phase("kernel", t0, f"merge4 == plain on 4 edge boards and N={CHECK_SIZES}: "
-          f"bit-exact on all four fields, max_abs_err={max_err}")
+    thresholds = merge.path_thresholds()
+    sizes = sorted(set(CHECK_SIZES) | {t + d for t in thresholds for d in (-1, 0)})
+    max_err = 0
+    for path in merge.PATHS:
+        max_err = max(max_err, compare(torch.as_tensor(edge_boards(), device="cuda"), path),
+                      compare(torch.as_tensor(high_boards(rng, 4096), device="cuda"), path))
+        for n in sizes:
+            boards = torch.as_tensor(random_boards(rng, n), device="cuda")
+            max_err = max(max_err, compare(boards, path))
+    phase("kernel", t0, f"merge4 == plain on 4 edge boards, 4096 boards of exponents "
+          f"16-32 and N={tuple(sizes)} (path thresholds N={thresholds}), each through "
+          f"paths {tuple(merge.PATHS)}: bit-exact on all four fields, max_abs_err={max_err}")
 
-    # 4. timing: device time per call, with the host's enqueue time beside it
+    # 4. graph: a captured launch replays on new boards
     t0 = time.perf_counter()
+    static = torch.as_tensor(random_boards(rng, GRAPH_BATCH), device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        merge.merge4_cuda(static)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = merge.merge4_cuda(static)
+    for field in captured:  # what an empty capture would leave behind
+        field.fill_(True if field.dtype == torch.bool else -1)
+    static.copy_(torch.as_tensor(random_boards(rng, GRAPH_BATCH), device="cuda"))
+    graph.replay()
+    graph_err = compare(static, got=captured)
+    phase("graph", t0, f"merge4_cuda captured on {GRAPH_BATCH} static boards, new "
+          f"boards copied in, replayed: bit-exact, max_abs_err={graph_err}")
+    del graph, captured
+
+    # 5. timing: device time per call, with the host's enqueue time beside it
+    t0 = time.perf_counter()
+    floor_t = torch.zeros(1, device="cuda")
     timing = {}
     for n in TIMING_SIZES:
         boards = torch.as_tensor(random_boards(rng, n), device="cuda")
         ms, enqueue_ms = device_ms(lambda: merge.merge4_cuda(boards))
-        plain_ms, plain_enqueue_ms = device_ms(lambda: merge.merge4_plain(boards))
-        timing[n] = dict(ms=ms, enqueue_ms=enqueue_ms, plain_ms=plain_ms,
-                         plain_enqueue_ms=plain_enqueue_ms,
+        floor_ms, _ = device_ms(lambda: floor_t.zero_())
+        timing[n] = dict(ms=ms, enqueue_ms=enqueue_ms, floor_ms=floor_ms,
                          bound_ms=n * MERGE_BYTES_PER_BOARD / HBM_BYTES_PER_S * 1e3)
+        if n == SERVE_BATCH:
+            timing[n]["plain_ms"], timing[n]["plain_enqueue_ms"] = device_ms(
+                lambda: merge.merge4_plain(boards))
     phase("timing", t0, f"card {card!r}; device ms per call (host enqueue ms): "
           + "; ".join(
-              f"N={n}: kernel {t['ms']:.6f} ({t['enqueue_ms']:.6f}), plain "
-              f"{t['plain_ms']:.6f} ({t['plain_enqueue_ms']:.6f}), bound "
-              f"{t['bound_ms']:.6f} (bytes)" for n, t in timing.items()))
+              f"N={n}: kernel {t['ms']:.6f} ({t['enqueue_ms']:.6f}), launch floor "
+              f"{t['floor_ms']:.6f}, bound {t['bound_ms']:.7f} (bytes)"
+              + (f", plain {t['plain_ms']:.6f} ({t['plain_enqueue_ms']:.6f})"
+                 if "plain_ms" in t else "")
+              for n, t in timing.items()))
 
     # The main path starts here: every launch count goes to 0.
     merge.launches = 0
 
-    # 5. serve
+    # 6. serve
     t0 = time.perf_counter()
     svc = PolicyService(str(CHECKPOINT), device="cuda")
     cfg = svc.model_cfg
@@ -180,7 +234,7 @@ def main() -> None:
           f"greedy and sampled: probs, legality and actions checked; "
           f"merge launches {serve_launches}")
 
-    # 6. eval
+    # 7. eval
     t0 = time.perf_counter()
     model, _, _ = load_model_checkpoint(str(CHECKPOINT), device="cuda")
     m = run_eval(model, EVAL_GAMES, seed=0, max_steps=EVAL_MAX_STEPS,
@@ -197,7 +251,7 @@ def main() -> None:
           f"{m['pct_1024']}, pct_2048 {m['pct_2048']}, steps {m['steps']}, "
           f"merge launches {eval_launches}")
 
-    # 7. kernels
+    # 8. kernels
     t0 = time.perf_counter()
     main_launches = merge.launches
     t = timing[SERVE_BATCH]
@@ -205,9 +259,13 @@ def main() -> None:
         "name": "merge4", "route": "cuda",
         "source": "tpu2048_torch/ops/csrc/merge4.cu",
         "replaces": "tpu2048/ops/pallas_merge.py:129",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": main_launches, "max_abs_err": max(max_err, graph_err),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
+        "enqueue_ms": t["enqueue_ms"], "floor_ms": t["floor_ms"],
+        "by_n": {str(n): {"ms": v["ms"], "enqueue_ms": v["enqueue_ms"],
+                          "floor_ms": v["floor_ms"], "bound_ms": v["bound_ms"]}
+                 for n, v in timing.items()},
     }]
     phase("kernels", t0, f"merge4: bit-exact, {main_launches} launches on the "
           f"main path (serve {serve_launches}, eval {eval_launches})")

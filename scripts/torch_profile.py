@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port's main path, on an NVIDIA GPU.
 
     python3 scripts/torch_profile.py [--steps 300] [--out chiprun_out/torch_profile.json]
+        [--merge-baseline OLD/merge4.cu] [--merge-only]
 
 Loads checkpoints_expG (H=384x3) on ``cuda`` and, for the eval step of 256
 greedy games and for a served request of 1 and of 256 boards, sets the host's
@@ -18,18 +19,38 @@ time beside the device's:
 
 The eval step is split into its stages (encode + MLP forward, masked
 argmax, the move and spawn, the merge of the next boards, the loop's own
-bookkeeping). The merge kernel is also timed alone at N = 256, 4096 and
-65,536, beside its plain PyTorch version. Prints one line per measurement,
-flushed, and writes them all as JSON to ``--out``. Imports torch, numpy and
-the port only.
+bookkeeping).
+
+The merge kernel is also timed alone at N = 1, 256, 4096, 32,768, 65,536 and
+1,048,576: device and enqueue ms per call of ``merge4_cuda`` (its own choice
+of design, and each design forced), of its plain PyTorch version, and of the
+launch floor (a one-element ``zero_()``), beside the byte bound at 3.35 TB/s.
+``--merge-baseline`` names the ``merge4.cu`` of an earlier commit whose
+``merge4_launch`` has the first port's signature (7 arguments, no path);
+it is built beside the current kernel, checked bit-exact against it, and
+timed in turns (baseline, current, current, baseline) through a copy of the
+first port's wrapper (four ``torch.empty``, a device guard). The script also
+breaks both wrappers' host time per call down into their steps, counts the
+SASS instructions of each kernel (``cuobjdump -sass``, the listing written
+beside ``--out``), and checks whether a ``torch.cuda.graph`` capture of
+each wrapper replays the kernel, warm and with the library's first launch
+inside the capture.
+``--merge-only`` skips the eval and serve measurements. Prints one line per
+measurement, flushed, and writes them all as JSON to ``--out``. Imports
+torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import re
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,11 +63,14 @@ sys.path.insert(0, str(ROOT))
 from tpu2048_torch.algo.rollout import masked_policy, play  # noqa: E402
 from tpu2048_torch.env import engine  # noqa: E402
 from tpu2048_torch.models.encoding import encode_boards  # noqa: E402
-from tpu2048_torch.ops import merge  # noqa: E402
+from tpu2048_torch.ops import _build, merge  # noqa: E402
 from tpu2048_torch.serve import PolicyService  # noqa: E402
 from tpu2048_torch.utils.profiling import cycles_per_ms, device_ms, host_ms  # noqa: E402
 
 GAMES = 256
+MERGE_SIZES = (1, 256, 4096, 8192, 16384, 32768, 65536, 131072, 262144, 524288, 1048576)
+MERGE_BYTES_PER_BOARD = 64 + 4 * (64 + 4 + 4 + 1)  # read once, write once
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def say(text: str) -> None:
@@ -145,23 +169,223 @@ def serve_request(svc, n: int) -> dict:
             "enqueue_ms_per_request": enqueue, "device_idle_share": 1 - device / host}
 
 
-def merge_alone(n: int) -> dict:
+def random_boards(n: int) -> torch.Tensor:
     rng = np.random.default_rng(n)
     b = rng.integers(0, 16, size=(n, 4, 4))
-    b = torch.as_tensor(np.where(rng.random((n, 4, 4)) < 0.35, 0, b).astype(np.int32),
-                        device="cuda")
-    kernel, kernel_enqueue = device_ms(lambda: merge.merge4_cuda(b))
-    plain, plain_enqueue = device_ms(lambda: merge.merge4_plain(b))
-    return {"boards": n, "kernel_device_ms": kernel,
-            "kernel_enqueue_ms": kernel_enqueue, "plain_device_ms": plain,
-            "plain_enqueue_ms": plain_enqueue,
-            "bound_ms": n * (64 + 4 * (64 + 4 + 4 + 1)) / 3.35e12 * 1e3}
+    return torch.as_tensor(np.where(rng.random((n, 4, 4)) < 0.35, 0, b).astype(np.int32),
+                           device="cuda")
+
+
+def baseline_wrapper(lib) -> callable:
+    """The first port's ``merge4_cuda`` (checks, four ``torch.empty``, a
+    device guard, the 7-argument ``merge4_launch``, a locked count) around
+    ``lib``, a library built from that port's ``merge4.cu``."""
+    lib.merge4_launch.restype = ctypes.c_int
+    lib.merge4_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+    count = [0]
+
+    def call(boards):
+        if not boards.is_cuda:
+            raise ValueError("needs a CUDA tensor")
+        merge._check(boards)
+        if boards.data_ptr() % 16:
+            raise ValueError("boards must be 16-byte aligned")
+        n = boards.shape[0]
+        dev = boards.device
+        out = torch.empty((4, n, 4, 4), dtype=torch.int32, device=dev)
+        scores = torch.empty((4, n), dtype=torch.int32, device=dev)
+        max_created = torch.empty((4, n), dtype=torch.int32, device=dev)
+        legal = torch.empty((4, n), dtype=torch.bool, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.merge4_launch(boards.data_ptr(), out.data_ptr(), scores.data_ptr(),
+                                   max_created.data_ptr(), legal.data_ptr(), n,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline merge4 launch failed (cudaError {rc})")
+        with merge._count_lock:
+            count[0] += 1
+        return out, scores, max_created, legal
+
+    return call
+
+
+def sass_counts(path: Path, out_dir: Path) -> dict:
+    """SASS instructions per kernel in the library at ``path`` (static
+    count, from ``cuobjdump -sass``, whose listing goes to ``out_dir``), or
+    the reason there is none."""
+    tool = shutil.which("cuobjdump") or str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return {"error": proc.stderr.strip()[-300:]}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{path.stem}.sass").write_text(proc.stdout)
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            counts[name] += 1
+    return counts
+
+
+def per_call_host_us(fn, reps: int = 200, rounds: int = 7) -> float:
+    """Median over rounds of the host's microseconds per ``fn()``, with a
+    synchronize between rounds so that the launch queue never fills."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / reps)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def split_outputs(n: int, dev) -> tuple:
+    """alloc_outputs' layout built with a split and views."""
+    w = torch.empty(73 * n, dtype=torch.int32, device=dev)
+    out, scores, max_created, legal = w.split_with_sizes([64 * n, 4 * n, 4 * n, n])
+    return (out.view(4, n, 4, 4), scores.view(4, n), max_created.view(4, n),
+            legal.view(torch.bool).view(4, n))
+
+
+def guard(dev) -> None:
+    with torch.cuda.device(dev):
+        pass
+
+
+def wrapper_breakdown(baseline, n: int = 256) -> dict:
+    """Host microseconds per call of each step of the wrappers at N=n."""
+    b = random_boards(n)
+    dev = b.device
+    idx = dev.index
+    fields = merge.alloc_outputs(n, dev)
+    ptrs = [t.data_ptr() for t in fields]
+    lib = merge.build().lib
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    steps = {
+        "checks (is_cuda, dtype, shape, contiguity, alignment)":
+            lambda: (b.is_cuda, merge._check(b), b.data_ptr() % 16),
+        "four torch.empty": lambda: (
+            torch.empty((4, n, 4, 4), dtype=torch.int32, device=dev),
+            torch.empty((4, n), dtype=torch.int32, device=dev),
+            torch.empty((4, n), dtype=torch.int32, device=dev),
+            torch.empty((4, n), dtype=torch.bool, device=dev)),
+        "one buffer, as_strided views (alloc_outputs)": lambda: merge.alloc_outputs(n, dev),
+        "one buffer, split_with_sizes and views": lambda: split_outputs(n, dev),
+        "one torch.empty alone": lambda: torch.empty(73 * n, dtype=torch.int32, device=dev),
+        "torch._C._cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "ctypes merge4_launch returning at once (n=0)": lambda: lib.merge4_launch(
+            b.data_ptr(), *ptrs, 0, stream, 0),
+        "torch.cuda.device guard": lambda: guard(dev),
+        "current_device check": lambda: idx != torch.cuda.current_device(),
+        "current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "five data_ptr()": lambda: [t.data_ptr() for t in (b,) + fields],
+        "ctypes merge4_launch (current kernel)": lambda: lib.merge4_launch(
+            b.data_ptr(), *ptrs, n, stream, 0),
+        "locked count": lambda: merge._count_lock.acquire() and merge._count_lock.release(),
+        "whole merge4_cuda (current)": lambda: merge.merge4_cuda(b),
+    }
+    if baseline is not None:
+        steps["whole merge4_cuda (first port's wrapper and kernel)"] = lambda: baseline(b)
+    return {name: per_call_host_us(fn) for name, fn in steps.items()}
+
+
+def capture_replays(wrapper, warm: bool = True) -> bool:
+    """Capture one ``wrapper(boards)`` of 256 boards in a CUDA graph (after a
+    warm-up call on a side stream, or with its first call inside the
+    capture), fill its outputs with -1, copy new boards into the input and
+    replay: True iff the replay wrote the merge of the new boards."""
+    static = random_boards(256)
+    if warm:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            wrapper(static)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = wrapper(static)
+    for t in outs:
+        t.fill_(True if t.dtype == torch.bool else -1)
+    static.copy_(random_boards(1024)[:256])
+    graph.replay()
+    torch.cuda.synchronize()
+    want = merge.merge4_plain(static)
+    return all(torch.equal(g, w) for g, w in zip(outs, want))
+
+
+def fresh_copy(path: Path, tmp: Path) -> ctypes.CDLL:
+    """The library at ``path`` loaded from a copy: a new instance, with its
+    own CUDA runtime state, whose kernels have never been launched."""
+    dst = tmp / f"{path.stem}-copy.so"
+    shutil.copy(path, dst)
+    return ctypes.CDLL(str(dst))
+
+
+def current_wrapper(lib) -> callable:
+    """merge4_cuda's launch through ``lib``, a copy of the current library."""
+    lib.merge4_launch.restype = ctypes.c_int
+    lib.merge4_launch.argtypes = merge._SIGNATURES["merge4_launch"][1]
+
+    def call(boards):
+        n = boards.shape[0]
+        fields = merge.alloc_outputs(n, boards.device)
+        rc = lib.merge4_launch(boards.data_ptr(), *(t.data_ptr() for t in fields), n,
+                               torch.cuda.current_stream().cuda_stream, 0)
+        if rc != 0:
+            raise RuntimeError(f"merge4 launch failed (cudaError {rc})")
+        return fields
+
+    return call
+
+
+def merge_timing(baseline) -> list:
+    """Per N: device and enqueue ms of the launch floor, of the current
+    kernel (its choice, and each design forced), of the baseline in turns
+    around it, and of the plain version, beside the byte bound."""
+    floor_t = torch.zeros(1, device="cuda")
+    rows = []
+    for n in MERGE_SIZES:
+        b = random_boards(n)
+        row = {"boards": n, "bound_ms": n * MERGE_BYTES_PER_BOARD / HBM_BYTES_PER_S * 1e3}
+        if baseline is not None:
+            got, want = baseline(b), merge.merge4_cuda(b)
+            row["baseline_equal"] = all(torch.equal(g, w) for g, w in zip(got, want))
+        turns = (("baseline", "current", "current", "baseline") if baseline is not None
+                 else ("current", "current"))
+        for i, who in enumerate(turns):
+            fn = (lambda: baseline(b)) if who == "baseline" else (lambda: merge.merge4_cuda(b))
+            row[f"{who}_{i}"] = device_ms(fn)
+        for path in ("small", "stream64", "stream128"):
+            row[path] = device_ms(lambda: merge.merge4_cuda(b, path=path))
+        row["floor"] = device_ms(lambda: floor_t.zero_())
+        # Yardstick for the memory rate: copy the input four times over
+        # (reads 64 B and writes 256 B per board).
+        fan_out = torch.empty((4, n * 16), dtype=torch.int32, device="cuda")
+        row["copy_4x"] = device_ms(lambda: fan_out.copy_(b.view(1, -1).expand(4, -1)))
+        del fan_out
+        row["plain"] = device_ms(lambda: merge.merge4_plain(b))
+        rows.append(row)
+        say(f"merge N={n}: bound {row['bound_ms']:.7f} ms; device ms (enqueue ms): "
+            + "; ".join(f"{k} {v[0]:.6f} ({v[1]:.6f})" for k, v in row.items()
+                        if isinstance(v, tuple))
+            + (f"; baseline bit-exact {row['baseline_equal']}" if baseline is not None else ""))
+    return rows
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "torch_profile.json"))
+    ap.add_argument("--merge-baseline", type=Path, default=None)
+    ap.add_argument("--merge-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -169,17 +393,48 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     say(f"card: {card}, torch {torch.__version__}, sleep {cycles_per_ms():.0f} cycles/ms")
-    svc = PolicyService(str(ROOT / "checkpoints_expG"), device="cuda")
     result = {"card": card, "torch": torch.__version__}
+    built = merge.build()
+    baseline = None
+    out = Path(args.out)
+    result["sass"] = {"current": sass_counts(built.path, out.parent)}
+    if args.merge_baseline is not None:
+        old = _build.load("merge4_baseline", {}, src=args.merge_baseline)
+        baseline = baseline_wrapper(old.lib)
+        result["sass"]["baseline"] = sass_counts(old.path, out.parent)
+    say(f"SASS instructions per kernel: {result['sass']}")
+    say("ptxas: " + " / ".join(ln.strip() for ln in built.log.splitlines()
+                               if "registers" in ln or "spill" in ln or "Compiling" in ln))
 
-    result["merge"] = []
-    for n in (256, 4096, 65536):
-        m = merge_alone(n)
-        result["merge"].append(m)
-        say(f"merge N={n}: kernel device {m['kernel_device_ms']:.6f} ms (enqueue "
-            f"{m['kernel_enqueue_ms']:.6f}), plain device {m['plain_device_ms']:.6f} ms "
-            f"(enqueue {m['plain_enqueue_ms']:.6f}), bound {m['bound_ms']:.6f} ms")
+    # Does a captured launch replay? Warm, and with the library's first
+    # launch inside the capture (a fresh copy of it).
+    tmp = Path(tempfile.mkdtemp())
+    wrappers = {"current": (merge.merge4_cuda,
+                            current_wrapper(fresh_copy(built.path, tmp)))}
+    if baseline is not None:
+        wrappers["baseline"] = (baseline, baseline_wrapper(fresh_copy(old.path, tmp)))
+    result["capture"] = {}
+    for who, (warm_fn, cold_fn) in wrappers.items():
+        for label, fn, warm in (("warm", warm_fn, True), ("first launch", cold_fn, False)):
+            try:  # a measurement: a capture may fail outright
+                result["capture"][f"{who}, {label}"] = capture_replays(fn, warm)
+            except RuntimeError as e:
+                result["capture"][f"{who}, {label}"] = f"capture failed: {e}"
+    shutil.rmtree(tmp)
+    say(f"graph capture replays bit-exact: {result['capture']}")
 
+    result["wrapper_us"] = wrapper_breakdown(baseline)
+    for name, us in result["wrapper_us"].items():
+        say(f"  host us per call, {name}: {us:.3f}")
+
+    result["merge"] = merge_timing(baseline)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    if args.merge_only:
+        say(f"written: {out}")
+        return
+
+    svc = PolicyService(str(ROOT / "checkpoints_expG"), device="cuda")
     ev = result["eval"] = eval_step(svc.model, args.steps)
     say(f"eval {ev['games']} games x {ev['steps']} steps: host "
         f"{ev['host_ms_per_step']:.4f} ms/step, device {ev['device_ms_per_step']:.4f} "
@@ -195,8 +450,6 @@ def main() -> None:
             f"device {s['device_ms_per_request']:.4f} ms (enqueue "
             f"{s['enqueue_ms_per_request']:.4f}), idle share {s['device_idle_share']:.4f}")
 
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     say(f"written: {out}")
 

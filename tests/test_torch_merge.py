@@ -24,6 +24,19 @@ def edge_boards() -> np.ndarray:
     return np.stack([empty, no_move, all_same, one_big])
 
 
+def high_boards() -> np.ndarray:
+    """Exponents 14..32, a third of the cells empty: created tiles past 2^31
+    wrap the int32 score, and from 2^32 on add 0. The first board has a row
+    of two 31s, the second two 32s."""
+    rng = np.random.default_rng(3)
+    b = rng.integers(14, 33, size=(2000, 4, 4))
+    b = np.where(rng.random((2000, 4, 4)) < 0.35, 0, b).astype(np.int32)
+    b[:2] = 0
+    b[0, 0, :2] = 31
+    b[1, 2, 2:] = 32
+    return b
+
+
 @pytest.fixture(scope="module")
 def boards():
     rng = np.random.default_rng(0)
@@ -37,7 +50,12 @@ def _assert_moves_equal(got, want):
                                       np.asarray(getattr(want, f)), err_msg=f)
 
 
-def test_plain_all_moves_matches_jax_engine(boards):
+@pytest.mark.parametrize("board_set", ["game", "exponents_14_32"])
+def test_plain_all_moves_matches_jax_engine(board_set, boards):
+    """The plain version, which the card check holds the kernel against,
+    equals the JAX engine on game boards and on exponents past 15."""
+    if board_set == "exponents_14_32":
+        boards = high_boards()
     want = jax.jit(jengine.all_moves)(jnp.asarray(boards))
     got = tengine.all_moves(torch.as_tensor(boards))
     assert got.legal.dtype == torch.bool and got.scores.dtype == torch.int32
@@ -104,17 +122,66 @@ def test_cpu_all_moves_does_not_count_launches(boards):
     assert merge.launches == 0
 
 
+@pytest.mark.parametrize("n", [1, 7, 256])
+def test_output_buffer_layout(n):
+    """The four fields are views of one buffer, each with the contract's
+    shape and dtype, at a 16-byte-aligned address, none overlapping."""
+    fields = merge.alloc_outputs(n, "cpu")
+    shapes = [(4, n, 4, 4), (4, n), (4, n), (4, n)]
+    dtypes = [torch.int32, torch.int32, torch.int32, torch.bool]
+    spans = []
+    for f, t, shape, dtype in zip(FIELDS, fields, shapes, dtypes):
+        assert tuple(t.shape) == shape and t.dtype == dtype, f
+        assert t.is_contiguous(), f
+        assert t.data_ptr() % 16 == 0, f
+        assert t.untyped_storage().data_ptr() == fields[0].untyped_storage().data_ptr(), f
+        spans.append((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()))
+    spans.sort()
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert end <= start
+    assert spans[-1][1] <= fields[0].data_ptr() + fields[0].untyped_storage().nbytes()
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card(boards):
-    """Bit-exact on the card. Decides inside the body whether a card is
-    present, so every worker collects the same tests."""
+    """Bit-exact on the card, through the kernel's own choice of design and
+    each design forced. Decides inside the body whether a card is present,
+    so every worker collects the same tests."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card via chip_smoke.py)")
-    b = torch.as_tensor(boards, device="cuda")
-    before = merge.launches
-    got = merge.merge4_cuda(b)
+    b = torch.as_tensor(np.concatenate([boards, high_boards()]), device="cuda")
     want = merge.merge4_plain(b)
+    for path in merge.PATHS:
+        before = merge.launches
+        got = merge.merge4_cuda(b, path=path)
+        torch.cuda.synchronize()
+        assert merge.launches == before + 1
+        for f, g, w in zip(FIELDS, got, want):
+            assert torch.equal(g, w), (path, f)
+
+
+@pytest.mark.gpu
+def test_captured_launch_replays_on_card():
+    """A merge4_cuda call captured in a CUDA graph replays on new boards
+    copied into its input, bit-exact; an empty capture would leave the -1s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card via chip_smoke.py)")
+    rng = np.random.default_rng(4)
+    static = torch.as_tensor(np.stack([random_board_np(rng) for _ in range(256)]),
+                             device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        merge.merge4_cuda(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = merge.merge4_cuda(static)
+    for t in captured:
+        t.fill_(True if t.dtype == torch.bool else -1)
+    new = np.stack([random_board_np(rng) for _ in range(256)])
+    static.copy_(torch.as_tensor(new, device="cuda"))
+    graph.replay()
     torch.cuda.synchronize()
-    assert merge.launches == before + 1
-    for f, g, w in zip(FIELDS, got, want):
+    for f, g, w in zip(FIELDS, captured, merge.merge4_plain(static)):
         assert torch.equal(g, w), f

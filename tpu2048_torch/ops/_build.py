@@ -84,8 +84,10 @@ def _compile(src: Path, out: Path) -> str:
     return log
 
 
-def load(name: str, signatures: dict) -> Built:
-    """Build (once per source hash) and load ``csrc/<name>.cu``.
+def load(name: str, signatures: dict, src: Path | None = None) -> Built:
+    """Build (once per source hash) and load ``csrc/<name>.cu``, or the
+    source ``src`` under the name ``name`` (an earlier commit's kernel,
+    built beside the current one to be timed against it).
 
     ``signatures`` maps each exported function to ``(restype, argtypes)``;
     they are set on the loaded library, since ctypes would otherwise pass
@@ -93,7 +95,7 @@ def load(name: str, signatures: dict) -> Built:
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        src = CSRC_DIR / f"{name}.cu"
+        src = Path(src) if src is not None else CSRC_DIR / f"{name}.cu"
         digest = hashlib.sha256(src.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

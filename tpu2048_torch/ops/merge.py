@@ -25,15 +25,27 @@ import torch
 from . import _build
 
 # Launches of the CUDA kernel in this process; a run sets it to 0 and reads
-# it back to show that its path went through the kernel.
+# it back to show that its path went through the kernel. A replay of a CUDA
+# graph that captured a launch does not pass through the wrapper and is not
+# counted.
 launches = 0
 _count_lock = threading.Lock()
 
 _SIGNATURES = {
     "merge4_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
-                      + [ctypes.c_int64, ctypes.c_void_p]),
+                      + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]),
+    "merge4_path_thresholds": (None, [ctypes.POINTER(ctypes.c_int64)] * 2),
     "merge4_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+# merge4_launch's `path`: the kernel picks by N, or is told which design to
+# run (for measurement and for checking each on the card): the small-N
+# design, or the streaming design on tiles of 64 or 128 boards.
+PATHS = {"auto": 0, "small": 1, "stream64": 2, "stream128": 3}
+# 4-byte words per board of the four outputs: boards 4x64 B, scores 4x4 B,
+# max_created 4x4 B, legal 4x1 B.
+_WORDS_PER_BOARD = (256 + 16 + 16 + 4) // 4
+
+_launch = None  # merge4_launch of the loaded library, looked up once
 
 
 def build() -> _build.Built:
@@ -98,11 +110,40 @@ def merge4_plain(boards: torch.Tensor) -> tuple:
     return out, scores, line_max.amax(-1), legal
 
 
-def merge4_cuda(boards: torch.Tensor) -> tuple:
+def path_thresholds() -> tuple:
+    """The N at which the kernel moves to its streaming design, and to that
+    design's 128-board tiles."""
+    stream_min, wide_min = ctypes.c_int64(), ctypes.c_int64()
+    build().lib.merge4_path_thresholds(ctypes.byref(stream_min), ctypes.byref(wide_min))
+    return stream_min.value, wide_min.value
+
+
+def alloc_outputs(n: int, device) -> tuple:
+    """The four ``MoveSet`` fields of ``n`` boards as views of one buffer on
+    ``device``: boards (4,n,4,4) int32, scores (4,n) int32, max_created
+    (4,n) int32 and legal (4,n) bool (1 byte each), in that order and each
+    at a 16-byte-aligned offset (256n, 272n and 288n bytes). One allocation
+    and four ``as_strided`` views are the cheapest of the layouts timed on
+    the host (``scripts/torch_profile.py``)."""
+    words = torch.empty(_WORDS_PER_BOARD * n, dtype=torch.int32, device=device)
+    return (words.as_strided((4, n, 4, 4), (16 * n, 16, 4, 1)),
+            words.as_strided((4, n), (n, 1), 64 * n),
+            words.as_strided((4, n), (n, 1), 68 * n),
+            words.view(torch.bool).as_strided((4, n), (n, 1), 288 * n))
+
+
+def merge4_cuda(boards: torch.Tensor, path: str = "auto") -> tuple:
     """Launch the CUDA kernel on ``boards``, a contiguous (N, 4, 4) int32
     CUDA tensor, on the current stream; does not synchronise. Raises on any
-    other input, and if the launch is refused."""
-    global launches
+    other input, and if the launch is refused.
+
+    The four fields returned are views of one buffer (:func:`alloc_outputs`):
+    a caller that keeps one of them keeps the whole buffer alive. ``path``
+    (a key of ``PATHS``) forces one of the kernel's designs; the default
+    lets it pick by N. The launch is captured by ``torch.cuda.graph`` like
+    any work on the current stream; ``launches`` counts calls of this
+    function, not replays of a graph."""
+    global launches, _launch
     if not boards.is_cuda:
         raise ValueError(
             f"merge4_cuda takes a CUDA tensor, got one on {boards.device} "
@@ -110,24 +151,24 @@ def merge4_cuda(boards: torch.Tensor) -> tuple:
     _check(boards)
     if boards.data_ptr() % 16:
         raise ValueError("boards must be 16-byte aligned")
+    idx = boards.device.index
+    if idx != torch.cuda.current_device():
+        with torch.cuda.device(idx):
+            return merge4_cuda(boards, path)
     n = boards.shape[0]
-    dev = boards.device
-    out = torch.empty((4, n, 4, 4), dtype=torch.int32, device=dev)
-    scores = torch.empty((4, n), dtype=torch.int32, device=dev)
-    max_created = torch.empty((4, n), dtype=torch.int32, device=dev)
-    legal = torch.empty((4, n), dtype=torch.bool, device=dev)
+    fields = alloc_outputs(n, boards.device)
     if n == 0:
-        return out, scores, max_created, legal
-    lib = build().lib
-    with torch.cuda.device(dev):
-        rc = lib.merge4_launch(
-            boards.data_ptr(), out.data_ptr(), scores.data_ptr(),
-            max_created.data_ptr(), legal.data_ptr(), n,
-            torch.cuda.current_stream(dev).cuda_stream)
+        return fields
+    if _launch is None:
+        _launch = build().lib.merge4_launch
+    # The raw handle of the current stream: what torch.cuda.current_stream()
+    # .cuda_stream gives, without building a Stream object (4 us a call).
+    rc = _launch(boards.data_ptr(), *(t.data_ptr() for t in fields), n,
+                 torch._C._cuda_getCurrentRawStream(idx), PATHS[path])
     if rc != 0:
         raise RuntimeError(
-            f"merge4 kernel launch failed: {lib.merge4_error_string(rc).decode()}"
-            f" (cudaError {rc})")
+            f"merge4 kernel launch failed: "
+            f"{build().lib.merge4_error_string(rc).decode()} (error {rc})")
     with _count_lock:
         launches += 1
-    return out, scores, max_created, legal
+    return fields
