@@ -25,12 +25,24 @@ raises and the run exits non-zero:
   serve    PolicyService on checkpoints_expG (H=384x3), predict in process
            on 1 and 256 boards, greedy and sampled
   eval     greedy run_eval of checkpoints_expG, 256 games
-  kernels  one JSON line per the port's kernels: check, launches, times
-           (at the served batch, and per timed N with the launch floor and
-           the host enqueue)
+  search   the same service with "search" 1, 2 and 3 on 256, 32 and 17
+           boards (17 crosses the 16-board depth-3 chunk): search_scores
+           finite exactly where legal and None elsewhere, a legal action;
+           4 boards at depths 1 and 2 against a CPU copy of the service
+           (plain merge, CPU GEMMs); the 17-board answer's first 16 rows
+           against a 16-board request
+  search_eval  evaluate_checkpoint(checkpoints_expA, search=True,
+           search_depth=2) over 32 games (one chunk): average above a
+           floor fixed before the first run
+  urm      checkpoints_urm_r5 on the card: each block and the whole forward
+           on 256 boards against the CPU, then a greedy run_eval of 256
+           games with an average above a floor
+  kernels  one JSON line per the port's kernels: check, launches (by
+           phase), times (at the served batch, and per timed N with the
+           launch floor and the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
-after the eval phase: they count the main path only. The last line is
+after the urm phase: they count the main path only. The last line is
 {"ok": true, "device": {...}}. Imports torch, numpy, the standard library and
 the port; never JAX and never the tpu2048 package.
 """
@@ -46,9 +58,11 @@ import numpy as np
 import torch
 
 from tpu2048_torch.env import engine
+from tpu2048_torch.models.encoding import encode_boards
 from tpu2048_torch.ops import merge
 from tpu2048_torch.serve import PolicyService
-from tpu2048_torch.train.evaluate import load_model_checkpoint, run_eval
+from tpu2048_torch.train.evaluate import (evaluate_checkpoint,
+                                          load_model_checkpoint, run_eval)
 from tpu2048_torch.utils.profiling import device_ms
 
 ROOT = Path(__file__).resolve().parent
@@ -62,6 +76,30 @@ SERVE_BATCH = 256
 EVAL_GAMES = 256
 EVAL_MAX_STEPS = 4096
 EVAL_MIN_AVG = 15000  # the JAX package's greedy n=256 stream: 25,074
+SEARCH_BATCHES = {1: 256, 2: 32, 3: 17}  # boards per request at each depth
+SEARCH_CPU_BOARDS = 4
+SEARCH_TOL = 1e-4  # f32 sums over 32 spawn slots per level, other order
+SEARCH_EVAL_CHECKPOINT = ROOT / "checkpoints_expA"
+# One depth-2 chunk. The phase's time is its longest game's moves times a
+# host-bound ~0.1 s a move, nearly whatever the number of games: 32 games
+# (1,807 moves) took 148-189 s on the H100, 16 games (one of 2,548 moves)
+# 214 s.
+SEARCH_EVAL_GAMES = 32
+# Fixed before the first run. The JAX package on the TPU, its own spawns:
+# greedy 8,178 (n=256), depth 2 24,532 (n=128); its first, wrong scorer
+# 9,989 at depth 2. The floor separates the calibrated backup from that.
+SEARCH_EVAL_MIN_AVG = 15000
+URM_CHECKPOINT = ROOT / "checkpoints_urm_r5"
+URM_BATCH = 256
+URM_GAMES = 256
+# The JAX package's greedy average on the TPU, its own spawns: 12,495.
+URM_MIN_AVG = 8000
+# One block against the CPU: f32 GEMMs, softmax and norms summed in another
+# order. The whole forward runs 8 blocks, and the recurrence roughly doubles
+# a difference per block in its last loops (measured on the CPU against the
+# JAX package: 2e-6 per block grows to 5e-5 in the logits), hence 1e-4.
+URM_BLOCK_TOL = 1e-5
+URM_FORWARD_TOL = 1e-4
 
 
 def phase(name: str, t0: float, text: str) -> None:
@@ -114,6 +152,148 @@ def compare(boards: torch.Tensor, path: str = "auto", got=None) -> int:
                                  f"N={n}) first at board {bad}: {boards[bad].tolist()}")
         err = max(err, diff)
     return err
+
+
+def check_search_answer(out: dict, n: int, depth: int) -> np.ndarray:
+    """The (n, 4) search scores of a served answer (NaN for None), after
+    checking them against its legality and its actions."""
+    legal = np.asarray(out["legal"], bool)
+    raw = out["search_scores"]
+    if legal.shape != (n, 4) or len(raw) != n:
+        raise AssertionError(f"depth {depth}: answer for {len(raw)} boards, expected {n}")
+    scores = np.array([[np.nan if v is None else v for v in row] for row in raw])
+    if not np.array_equal(~np.isnan(scores), legal):
+        raise AssertionError(f"depth {depth}: search_scores None where legal or "
+                             "a number where illegal")
+    if not np.isfinite(scores[legal]).all():
+        raise AssertionError(f"depth {depth}: non-finite score of a legal move")
+    actions = np.asarray(out["actions"])
+    live = legal.any(1)
+    if not legal[live, actions[live]].all():
+        raise AssertionError(f"depth {depth}: an illegal action was served")
+    if not np.array_equal(actions[live], np.nanargmax(scores[live], 1)):
+        raise AssertionError(f"depth {depth}: the action is not the argmax of the scores")
+    return scores
+
+
+def assert_close(name: str, got: np.ndarray, want: np.ndarray, tol: float) -> float:
+    """Raise unless ``got`` is within ``tol`` (rtol and atol) of ``want``, NaN
+    where it is; return the largest absolute difference."""
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"{name}: NaN (None) in other places")
+    ok = ~np.isnan(want)
+    if not np.allclose(got[ok], want[ok], rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: max |diff| {np.abs(got[ok] - want[ok]).max()} "
+                             f"beyond rtol=atol={tol}")
+    return float(np.abs(got[ok] - want[ok]).max()) if ok.any() else 0.0
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def search_phase(svc: PolicyService, by_phase: dict) -> None:
+    """Serve by expectimax at depths 1-3 on ``svc``'s device, against a CPU
+    copy of the service at depths 1 and 2 and against one chunk at depth 3;
+    adds each depth's merge launches to ``by_phase``."""
+    t0 = time.perf_counter()
+    start = merge.launches
+    cpu_svc = PolicyService(str(CHECKPOINT), device="cpu")
+    boards = np.minimum(random_boards(np.random.default_rng(9), SEARCH_BATCHES[1]), 11)
+    search_ms, search_err = {}, 0.0
+    for depth, n in SEARCH_BATCHES.items():
+        before = merge.launches
+        t1 = time.perf_counter()
+        out = svc.predict(boards[:n], search=depth)
+        sync(svc.device)
+        search_ms[depth] = (time.perf_counter() - t1) * 1e3
+        scores = check_search_answer(out, n, depth)
+        if depth < 3:
+            mine = svc.predict(boards[:SEARCH_CPU_BOARDS], search=depth)
+            theirs = cpu_svc.predict(boards[:SEARCH_CPU_BOARDS], search=depth)
+            search_err = max(search_err, assert_close(
+                f"depth {depth}, card vs CPU",
+                check_search_answer(mine, SEARCH_CPU_BOARDS, depth),
+                check_search_answer(theirs, SEARCH_CPU_BOARDS, depth), SEARCH_TOL))
+        else:
+            chunk = svc.DEPTH3_CHUNK
+            if n <= chunk:
+                raise AssertionError(f"{n} boards do not cross the {chunk}-board chunk")
+            first = check_search_answer(svc.predict(boards[:chunk], search=depth),
+                                        chunk, depth)
+            search_err = max(search_err, assert_close(
+                f"depth 3, first {chunk} of {n} vs {chunk} alone", scores[:chunk],
+                first, SEARCH_TOL))
+        by_phase[f"search_d{depth}"] = merge.launches - before
+    del cpu_svc
+    phase("search", t0, f"{CHECKPOINT.name}: search_scores finite exactly where legal, "
+          f"actions legal and their argmax, at depths 1/2/3 on "
+          f"{'/'.join(map(str, SEARCH_BATCHES.values()))} boards; card == CPU on "
+          f"{SEARCH_CPU_BOARDS} boards at depths 1 and 2, depth-3 chunks == one "
+          f"request, to {SEARCH_TOL} (max |diff| {search_err:.6g}); host ms per request "
+          + ", ".join(f"depth {d} {ms:.3f}" for d, ms in search_ms.items())
+          + "; merge launches " + ", ".join(f"depth {d} {by_phase[f'search_d{d}']}"
+                                            for d in SEARCH_BATCHES)
+          + f" (all {merge.launches - start}, with the comparisons' card requests)")
+
+
+def search_eval_phase(by_phase: dict, device="cuda") -> None:
+    """The CLI's search evaluation at depth 2 of SEARCH_EVAL_CHECKPOINT."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    m = evaluate_checkpoint(str(SEARCH_EVAL_CHECKPOINT), games=SEARCH_EVAL_GAMES,
+                            env_seed=12345, search=True, search_depth=2, device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    by_phase["search_eval"] = merge.launches - before
+    if m["avg_score"] <= SEARCH_EVAL_MIN_AVG:
+        raise AssertionError(f"depth-2 search avg {m['avg_score']} <= {SEARCH_EVAL_MIN_AVG}")
+    phase("search_eval", t0, f"{SEARCH_EVAL_CHECKPOINT.name} depth 2, n={SEARCH_EVAL_GAMES}: "
+          f"avg {m['avg_score']}, max {m['max_score']}, median {m['median_score']}, "
+          f"pct_2048 {m['pct_2048']}, moves {m['steps']}, "
+          f"{seconds * 1e3 / m['steps']:.3f} ms per move, merge launches "
+          f"{by_phase['search_eval']} ({by_phase['search_eval'] / m['steps']:.2f} per move)")
+
+
+def urm_phase(by_phase: dict, device="cuda") -> None:
+    """The URM checkpoint: blocks and forward against the CPU, greedy eval."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    urm, ucfg, utype = load_model_checkpoint(str(URM_CHECKPOINT), device=device)
+    urm_cpu, _, _ = load_model_checkpoint(str(URM_CHECKPOINT), device="cpu")
+    if utype != "urm":
+        raise AssertionError(f"{URM_CHECKPOINT.name} loaded as {utype!r}")
+    ub = torch.as_tensor(np.minimum(random_boards(np.random.default_rng(11), URM_BATCH), 11))
+    with torch.inference_mode():
+        hidden = torch.as_tensor(np.random.default_rng(12).normal(
+            size=(URM_BATCH, 16, ucfg.hidden_dim)).astype(np.float32))
+        block_err = max(assert_close(
+            f"URM block {i}", urm._block(urm.blocks[i], hidden.to(device)).cpu().numpy(),
+            urm_cpu._block(urm_cpu.blocks[i], hidden).numpy(), URM_BLOCK_TOL)
+            for i in range(ucfg.num_layers))
+        got = urm(encode_boards(ub.to(device)))
+        want = urm_cpu(encode_boards(ub))
+        fwd_err = max(assert_close(f"URM forward {name}", g.cpu().numpy(), w.numpy(),
+                                   URM_FORWARD_TOL)
+                      for name, g, w in zip(("logits", "value"), got, want))
+    t1 = time.perf_counter()
+    m = run_eval(urm, URM_GAMES, seed=0, max_steps=EVAL_MAX_STEPS, greedy=True,
+                 env_seed=12345)
+    sync(device)
+    urm_seconds = time.perf_counter() - t1
+    by_phase["urm"] = merge.launches - before
+    if m["avg_score"] <= URM_MIN_AVG:
+        raise AssertionError(f"URM greedy avg {m['avg_score']} <= {URM_MIN_AVG}")
+    if by_phase["urm"] < m["steps"]:
+        raise AssertionError(f"{by_phase['urm']} merge launches for {m['steps']} steps")
+    phase("urm", t0, f"{URM_CHECKPOINT.name} {ucfg}: blocks == CPU to {URM_BLOCK_TOL} "
+          f"(max |diff| {block_err:.3g}), forward on {URM_BATCH} boards == CPU to "
+          f"{URM_FORWARD_TOL} (max |diff| {fwd_err:.3g}); greedy n={URM_GAMES}: avg "
+          f"{m['avg_score']}, max {m['max_score']}, median {m['median_score']}, "
+          f"pct_2048 {m['pct_2048']}, steps {m['steps']}, {urm_seconds:.3f} s "
+          f"({urm_seconds * 1e3 / m['steps']:.3f} ms per step), merge launches "
+          f"{by_phase['urm']}")
 
 
 def main() -> None:
@@ -251,9 +431,17 @@ def main() -> None:
           f"{m['pct_1024']}, pct_2048 {m['pct_2048']}, steps {m['steps']}, "
           f"merge launches {eval_launches}")
 
-    # 8. kernels
+    by_phase = {"serve": serve_launches, "eval": eval_launches}
+
+    search_phase(svc, by_phase)
+    search_eval_phase(by_phase)
+    urm_phase(by_phase)
+
+    # 11. kernels
     t0 = time.perf_counter()
     main_launches = merge.launches
+    if main_launches != sum(by_phase.values()):
+        raise AssertionError(f"{main_launches} launches, phases add up to {by_phase}")
     t = timing[SERVE_BATCH]
     kernels = [{
         "name": "merge4", "route": "cuda",
@@ -262,13 +450,14 @@ def main() -> None:
         "launches": main_launches, "max_abs_err": max(max_err, graph_err),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
+        "launches_by_phase": by_phase,
         "enqueue_ms": t["enqueue_ms"], "floor_ms": t["floor_ms"],
         "by_n": {str(n): {"ms": v["ms"], "enqueue_ms": v["enqueue_ms"],
                           "floor_ms": v["floor_ms"], "bound_ms": v["bound_ms"]}
                  for n, v in timing.items()},
     }]
     phase("kernels", t0, f"merge4: bit-exact, {main_launches} launches on the "
-          f"main path (serve {serve_launches}, eval {eval_launches})")
+          "main path (" + ", ".join(f"{k} {v}" for k, v in by_phase.items()) + ")")
     print(json.dumps({"kernels": kernels}), flush=True)
 
     del svc, model

@@ -35,7 +35,20 @@ SASS instructions of each kernel (``cuobjdump -sass``, the listing written
 beside ``--out``), and checks whether a ``torch.cuda.graph`` capture of
 each wrapper replays the kernel, warm and with the library's first launch
 inside the capture.
-``--merge-only`` skips the eval and serve measurements. Prints one line per
+``--merge-only`` skips the eval and serve measurements.
+
+The search (``--search-only`` runs it alone) is measured at depth 1 over 256
+games of checkpoints_expG, depth 2 over 32 games of checkpoints_expA (each
+a few moves of ``play`` with ``search``, from fresh boards: a move's work is
+the same for any boards, 32 spawn slots per chance node) and depth 3 on a
+16-board request of checkpoints_expG (``expectimax_scores`` with
+``prune_k`` 2). For each: host ms per move; the sizes each move runs the
+merge and the forward at; the device time of those merges and forwards,
+each replayed alone at the recorded sizes (``device_ms``); and, from
+``torch.profiler`` over one move, the device time of all its kernels, of
+the merge kernel (by name) and of the forwards (the forwards replayed alone
+under the profiler), the rest being the difference, with the count of
+device kernels and of top-level host operations the move ran. Prints one line per
 measurement, flushed, and writes them all as JSON to ``--out``. Imports
 torch, numpy and the port only.
 """
@@ -43,6 +56,7 @@ torch, numpy and the port only.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import re
@@ -61,10 +75,12 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from tpu2048_torch.algo.rollout import masked_policy, play  # noqa: E402
+from tpu2048_torch.algo.search import expectimax_scores  # noqa: E402
 from tpu2048_torch.env import engine  # noqa: E402
 from tpu2048_torch.models.encoding import encode_boards  # noqa: E402
 from tpu2048_torch.ops import _build, merge  # noqa: E402
 from tpu2048_torch.serve import PolicyService  # noqa: E402
+from tpu2048_torch.train.evaluate import load_model_checkpoint, load_search_coefs  # noqa: E402
 from tpu2048_torch.utils.profiling import cycles_per_ms, device_ms, host_ms  # noqa: E402
 
 GAMES = 256
@@ -167,6 +183,144 @@ def serve_request(svc, n: int) -> dict:
         device, enqueue = device_ms(device_part)
     return {"boards": n, "host_ms_per_request": host, "device_ms_per_request": device,
             "enqueue_ms_per_request": enqueue, "device_idle_share": 1 - device / host}
+
+
+class RecordingModel(torch.nn.Module):
+    """``model``, keeping the row count of every forward."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model, self.rows = model, []
+
+    def forward(self, x):
+        self.rows.append(x.shape[0])
+        return self.model(x)
+
+
+def kernel_us(prof) -> dict:
+    """Device microseconds of a profile by kernel name (CUDA rows only)."""
+    out = collections.Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.key] += ev.self_device_time_total
+    return out
+
+
+def launch_counts(prof) -> tuple:
+    """(device kernels and copies run, top-level host operations called) in
+    a profile."""
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    ops = sum(1 for ev in prof.events()
+              if ev.cpu_parent is None and ev.device_type == torch.autograd.DeviceType.CPU)
+    return kernels, ops
+
+
+def search_move(label: str, ckpt: str, n: int, depth: int, prune_k: int,
+                moves: int) -> dict:
+    """One configuration of the search: host ms per move (``moves`` moves of
+    ``play``, or ``moves`` scorer calls when ``moves`` is negative, i.e. a
+    served request), and where one move's device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, cfg, _ = load_model_checkpoint(str(ROOT / ckpt), device="cuda")
+    coefs = load_search_coefs(ROOT / ckpt)
+    gen = torch.Generator(device="cuda").manual_seed(12345)
+    boards = engine.reset(n, "cuda", generator=gen)
+    rec = RecordingModel(model)
+    sizes = []
+    original = merge.merge4_cuda
+
+    def recording_merge(b, path="auto"):
+        sizes.append(b.shape[0])
+        return original(b, path)
+
+    def one_move():  # what a trip of play() runs for the search
+        moves_ = engine.all_moves(boards)
+        action = expectimax_scores(rec, boards, moves_, coefs, depth, prune_k).argmax(-1)
+        return engine.step(boards, action, engine.spawn_draws((n,), gen, "cuda"),
+                           moves=moves_)
+
+    with torch.inference_mode():
+        one_move()  # warm-up
+        torch.cuda.synchronize()
+        reps = abs(moves)
+        t0 = time.perf_counter()
+        if moves > 0:
+            play(model, boards, moves, gen, greedy=True, search=(coefs, depth, prune_k))
+        else:
+            for _ in range(reps):
+                expectimax_scores(model, boards, None, coefs, depth, prune_k)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+
+        rec.rows.clear()
+        merge.merge4_cuda = recording_merge
+        try:
+            one_move()
+        finally:
+            merge.merge4_cuda = original
+        torch.cuda.synchronize()
+        rows, merge_sizes = list(rec.rows), list(sizes)
+
+        # Device time of the move's merges and forwards, each replayed alone.
+        merge_ms = fwd_ms = 0.0
+        for size, count in collections.Counter(merge_sizes).items():
+            b = random_boards(size)
+            merge_ms += count * device_ms(lambda: merge.merge4_cuda(b), calls=10)[0]
+        for size, count in collections.Counter(rows).items():
+            x = encode_boards(random_boards(size))
+            fwd_ms += count * device_ms(lambda: model(x), calls=10)[0]
+
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            one_move()
+            torch.cuda.synchronize()
+        by_kernel = kernel_us(prof)
+        inputs = {size: encode_boards(random_boards(size)) for size in set(rows)}
+        with profile(activities=acts) as prof_fwd:
+            for size in rows:
+                model(inputs[size])
+            torch.cuda.synchronize()
+    kernels, host_ops = launch_counts(prof)
+    total_us = sum(by_kernel.values())
+    merge_us = sum(v for k, v in by_kernel.items() if "merge4" in k)
+    fwd_us = sum(kernel_us(prof_fwd).values())
+    out = {"label": label, "checkpoint": ckpt, "config": str(cfg), "boards": n,
+           "depth": depth, "prune_k": prune_k, "host_ms_per_move": host,
+           "merge_calls": len(merge_sizes),
+           "merge_sizes": dict(collections.Counter(merge_sizes)),
+           "forward_calls": len(rows), "forward_rows": dict(collections.Counter(rows)),
+           "replayed_merge_device_ms": merge_ms, "replayed_forward_device_ms": fwd_ms,
+           "device_kernels_per_move": kernels, "host_ops_per_move": host_ops,
+           "host_us_per_op": host * 1e3 / max(host_ops, 1)}
+    if total_us:
+        out.update(profiler_device_ms=total_us / 1e3, profiler_merge_ms=merge_us / 1e3,
+                   profiler_forward_ms=fwd_us / 1e3,
+                   profiler_rest_ms=(total_us - merge_us - fwd_us) / 1e3,
+                   device_idle_share=1 - total_us / 1e3 / host,
+                   top_kernels_us=dict(by_kernel.most_common(12)))
+    else:
+        out["profiler_device_ms"] = "not measured (the profile holds no CUDA kernels)"
+    return out
+
+
+SEARCH_CONFIGS = (  # label, checkpoint, boards, depth, prune_k, moves (<0: requests)
+    ("depth 1, 256 games", "checkpoints_expG", 256, 1, 0, 40),
+    ("depth 2, 32 games", "checkpoints_expA", 32, 2, 0, 8),
+    ("depth 3, 16-board request", "checkpoints_expG", 16, 3, 2, -2),
+)
+
+
+def search_all(result: dict, out: Path) -> None:
+    """Every SEARCH_CONFIGS entry, each written to ``out`` as it ends."""
+    result["search"] = []
+    for config in SEARCH_CONFIGS:
+        r = search_move(*config)
+        result["search"].append(r)
+        say(json.dumps(r))
+        out.write_text(json.dumps(result, indent=1))
+    say(f"written: {out}")
 
 
 def random_boards(n: int) -> torch.Tensor:
@@ -386,6 +540,7 @@ def main() -> None:
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "torch_profile.json"))
     ap.add_argument("--merge-baseline", type=Path, default=None)
     ap.add_argument("--merge-only", action="store_true")
+    ap.add_argument("--search-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -394,9 +549,14 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     say(f"card: {card}, torch {torch.__version__}, sleep {cycles_per_ms():.0f} cycles/ms")
     result = {"card": card, "torch": torch.__version__}
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32, as the JAX reference
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if args.search_only:
+        search_all(result, out)
+        return
     built = merge.build()
     baseline = None
-    out = Path(args.out)
     result["sass"] = {"current": sass_counts(built.path, out.parent)}
     if args.merge_baseline is not None:
         old = _build.load("merge4_baseline", {}, src=args.merge_baseline)
@@ -428,7 +588,6 @@ def main() -> None:
         say(f"  host us per call, {name}: {us:.3f}")
 
     result["merge"] = merge_timing(baseline)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     if args.merge_only:
         say(f"written: {out}")
@@ -449,9 +608,7 @@ def main() -> None:
         say(f"serve {n} boards: host {s['host_ms_per_request']:.4f} ms/request, "
             f"device {s['device_ms_per_request']:.4f} ms (enqueue "
             f"{s['enqueue_ms_per_request']:.4f}), idle share {s['device_idle_share']:.4f}")
-
-    out.write_text(json.dumps(result, indent=1))
-    say(f"written: {out}")
+    search_all(result, out)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,18 @@ from tpu2048.env import engine as jengine
 from tpu2048_torch.env import engine as tengine
 
 J_STEP = jax.jit(jengine.step)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one CPU thread for a module's tests. The suite runs in
+    several worker processes side by side, and torch's thread pool in each
+    of them then spins against the others: small eager operations slow
+    down by orders of magnitude. Port test modules import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 J_MOVES = jax.jit(jengine.all_moves)
 
 

@@ -1,5 +1,7 @@
 """The slice as a whole: the port's evaluation loop replays the JAX greedy
-rollout of checkpoints_expG move for move, with the JAX spawns injected."""
+rollout of checkpoints_expG move for move, with the JAX spawns injected.
+``jax_greedy_rollout`` and ``assert_greedy_loop_replays`` serve the other
+model families' tests too."""
 
 import re
 from pathlib import Path
@@ -7,13 +9,12 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
-from tests.test_torch_engine import replay_draws
+from tests.test_torch_engine import one_torch_thread, replay_draws  # noqa: F401
 from tpu2048.algo import rollout as jrollout
 from tpu2048.env import engine as jengine
-from tpu2048.models import mlp as jmlp
+from tpu2048.train.evaluate import _apply_fn
 from tpu2048.train.evaluate import load_model_checkpoint as jload
 from tpu2048_torch.algo.rollout import masked_policy, play
 from tpu2048_torch.models.encoding import encode_boards
@@ -25,12 +26,13 @@ ROOT = Path(__file__).resolve().parent.parent
 GAMES, STEPS = 8, 300
 
 
-@pytest.fixture(scope="module")
-def jax_greedy_rollout():
-    params, cfg, _ = jload(ROOT / "checkpoints_expG")
+def jax_greedy_rollout(ckpt, games, steps):
+    """The JAX package's greedy rollout of checkpoint ``ckpt`` (``games``
+    games, ``steps`` steps, env key 12345) as numpy arrays."""
+    params, cfg, mtype = jload(ROOT / ckpt)
+    apply_fn = _apply_fn(cfg, mtype)
     go = jax.jit(lambda p, k, ek: jrollout.rollout(
-        lambda q, x: jmlp.apply(q, cfg, x), p, k, GAMES, STEPS, env_key=ek,
-        greedy=True))
+        apply_fn, p, k, games, steps, env_key=ek, greedy=True))
     traj = go(params, jax.random.key(0), jax.random.key(12345))
     return jax.tree.map(np.asarray, traj)
 
@@ -51,31 +53,38 @@ def _first_divergence(model, traj, actions):
     return None
 
 
-def test_greedy_loop_replays_jax_rollout(jax_greedy_rollout):
-    traj = jax_greedy_rollout
-    steps = int(traj.steps_executed)
+def assert_greedy_loop_replays(model, traj, games, steps):
+    """The port's greedy ``play`` from the trajectory's first boards, with its
+    spawns injected, takes the same actions and ends with the same points,
+    move counts, ended flags and final boards."""
+    n_steps = int(traj.steps_executed)
     boards0 = traj.board_before[0].astype(np.int32)
-    spawns = np.full((STEPS, 2, GAMES), 0.5, np.float32)
+    spawns = np.full((steps, 2, games), 0.5, np.float32)
     moves = jax.jit(jengine.all_moves)
-    for t in range(steps):
+    for t in range(n_steps):
         before = traj.board_before[t].astype(np.int32)
         moved = np.asarray(moves(jnp.asarray(before)).boards)[
-            traj.action[t].astype(np.int64), np.arange(GAMES)]
+            traj.action[t].astype(np.int64), np.arange(games)]
         live = traj.valid[t]
         spawns[t][:, live] = replay_draws(moved[live],
                                           traj.board_after[t][live].astype(np.int32))
-    model, _, _ = tload(ROOT / "checkpoints_expG", device="cpu")
-    res = play(model, torch.as_tensor(boards0), STEPS, torch.as_tensor(spawns),
+    res = play(model, torch.as_tensor(boards0), steps, torch.as_tensor(spawns),
                greedy=True)
     actions = res.actions.numpy()
     div = _first_divergence(model, traj, actions)
     assert div is None, "first divergence at step %d, game %d, top-2 logit gap %g" % div
-    assert res.steps == steps
+    assert res.steps == n_steps
     np.testing.assert_array_equal(res.total_points.numpy(), traj.total_points)
     np.testing.assert_array_equal(res.num_moves.numpy(), traj.num_moves)
     np.testing.assert_array_equal(res.ended.numpy(), traj.ended)
     np.testing.assert_array_equal(res.final_board.numpy(), traj.final_board)
-    assert steps == STEPS and traj.total_points.min() > 0
+    assert n_steps == steps and traj.total_points.min() > 0
+
+
+def test_greedy_loop_replays_jax_rollout():
+    model, _, _ = tload(ROOT / "checkpoints_expG", device="cpu")
+    assert_greedy_loop_replays(model, jax_greedy_rollout("checkpoints_expG", GAMES, STEPS),
+                               GAMES, STEPS)
 
 
 def test_masked_policy_matches_jax():

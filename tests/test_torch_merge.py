@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from tests.conftest import random_board_np
+from tests.test_torch_engine import one_torch_thread  # noqa: F401  (autouse)
 from tpu2048.env import engine as jengine
 from tpu2048_torch.env import engine as tengine
 from tpu2048_torch.ops import merge

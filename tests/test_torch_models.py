@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from tests.conftest import random_board_np
+from tests.test_torch_engine import one_torch_thread  # noqa: F401  (autouse)
 from tpu2048.models import MLPConfig as JMLPConfig
 from tpu2048.models import encoding as jencoding
 from tpu2048.models import mlp as jmlp

@@ -2,12 +2,15 @@
 
 Mirrors the module layout of ``tpu2048`` so each counterpart is easy to find:
 
-  env/      the batched 2048 engine (merge, spawn, step) on torch tensors
+  env/      the batched 2048 engine (merge, spawn, step) on torch tensors,
+            and the heuristics of the shaping potential
   ops/      hand-written CUDA kernels (``csrc/``), their nvcc build and wrappers
-  models/   board encoding and the GameMLP actor-critic as an ``nn.Module``
-  algo/     the evaluation game loop and masked policy
-  train/    checkpoint reader, ``evaluate`` and its CLI
-  serve.py  the HTTP policy server
+  models/   board encoding, the GameMLP and GameURM actor-critics as
+            ``nn.Module``s (forward in eval mode)
+  algo/     the evaluation game loop, masked policy and expectimax search
+  train/    checkpoint reader, ``evaluate`` (greedy, sampled, search) and
+            its CLI
+  serve.py  the HTTP policy server (policy, greedy and search modes)
 
 Imports torch, numpy and the standard library only — never ``jax`` and never
 the ``tpu2048`` package. Entry points run on ``cuda`` unless the caller asks

@@ -1,10 +1,14 @@
-"""The evaluation game loop: N games to the end, greedy or sampled.
+"""The evaluation game loop: N games to the end, greedy, sampled or by
+expectimax search.
 
-Counterpart of the eval-only part of ``tpu2048/algo/rollout.py::rollout``.
-One trip of the loop is one step of every game:
+Counterpart of the eval-only part of ``tpu2048/algo/rollout.py::rollout`` and
+of ``tpu2048/algo/search.py::search_rollout`` (whose loop has the same alive,
+points and frozen-board rules). One trip of the loop is one step of every
+game:
 
     all_moves (the merge kernel)  ->  action mask
     policy forward (eval mode)    ->  masked argmax or masked sample
+      or expectimax_scores        ->  argmax of the search scores
     step (move + spawn)           ->  next boards and their all_moves
 
 ``step`` hands back the next state's moves, so each board is merged once per
@@ -19,12 +23,15 @@ sampled actions have theirs.
 
 from __future__ import annotations
 
+import sys
+import time
 from typing import NamedTuple
 
 import torch
 
 from ..env import engine
 from ..models.encoding import encode_boards
+from .search import expectimax_scores
 
 
 class PlayResult(NamedTuple):
@@ -51,14 +58,17 @@ def masked_policy(logits: torch.Tensor, invalid_mask: torch.Tensor) -> tuple:
 
 @torch.inference_mode()
 def play(model, boards: torch.Tensor, max_steps: int, spawns, *,
-         greedy: bool, action_generator: torch.Generator | None = None
-         ) -> PlayResult:
+         greedy: bool, action_generator: torch.Generator | None = None,
+         search: tuple | None = None) -> PlayResult:
     """Play the games that start from ``boards`` (N, 4, 4) int32.
 
     ``spawns`` is a ``torch.Generator`` on the boards' device, or a
     (max_steps, 2, N) tensor of spawn draws (``engine.spawn_tile``) for each
-    trip. ``greedy`` takes the masked argmax; otherwise actions are sampled
-    from the masked policy with ``action_generator``."""
+    trip. ``search`` = ``(coefs, depth, prune_k)`` takes the argmax of
+    ``expectimax_scores`` (the policy head is not run) and prints a
+    heartbeat to stderr every 100 trips; otherwise ``greedy`` takes the
+    masked argmax, or actions are sampled from the masked policy with
+    ``action_generator``."""
     n = boards.shape[0]
     moves = engine.all_moves(boards)
     alive = torch.ones(n, dtype=torch.bool, device=boards.device)
@@ -67,16 +77,28 @@ def play(model, boards: torch.Tensor, max_steps: int, spawns, *,
     ended = torch.zeros_like(alive)
     final_board = boards.clone()
     actions = []
+    t_prev = time.perf_counter()
     for t in range(max_steps):
         if not bool(alive.any()):
             break
-        logits, _ = model(encode_boards(boards))
-        masked, logprobs, _ = masked_policy(logits, moves.action_mask)
-        if greedy:
-            action = masked.argmax(-1)
+        if search is not None and t and t % 100 == 0:
+            now = time.perf_counter()
+            print(f"    [search loop] move {t}: {int(alive.sum())}/{n} alive, "
+                  f"avg points so far {float(total_points.float().mean()):.0f}, "
+                  f"{(now - t_prev) * 10:.0f} ms/move", file=sys.stderr, flush=True)
+            t_prev = now
+        if search is not None:
+            coefs, depth, prune_k = search
+            action = expectimax_scores(model, boards, moves, coefs, depth,
+                                       prune_k).argmax(-1)
         else:
-            action = torch.multinomial(logprobs.exp(), 1,
-                                       generator=action_generator)[:, 0]
+            logits, _ = model(encode_boards(boards))
+            masked, logprobs, _ = masked_policy(logits, moves.action_mask)
+            if greedy:
+                action = masked.argmax(-1)
+            else:
+                action = torch.multinomial(logprobs.exp(), 1,
+                                           generator=action_generator)[:, 0]
         draws = (spawns[t] if isinstance(spawns, torch.Tensor)
                  else engine.spawn_draws((n,), spawns, boards.device))
         res = engine.step(boards, action, draws, moves=moves)

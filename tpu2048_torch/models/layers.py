@@ -1,5 +1,5 @@
 """The layers of the model families (counterpart of
-``tpu2048/models/layers.py``: ``linear`` and ``layer_norm``).
+``tpu2048/models/layers.py``: ``linear``, ``layer_norm`` and ``rms_norm``).
 
 Parameters carry the JAX package's names (``w``/``b`` for a linear layer,
 ``g``/``b`` for a layer norm), so a module's ``state_dict`` keys are the JAX
@@ -43,3 +43,11 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, (x.shape[-1],), self.g, self.b, self.eps)
+
+
+def rms_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Parameter-free RMSNorm over the last axis, computed in float32 and
+    cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype)

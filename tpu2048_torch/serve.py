@@ -2,15 +2,24 @@
 
 Counterpart of ``tpu2048/serve.py``, with the same endpoints and answers:
 
-  POST /predict   {"board": [[...4x4 exponents...]], "greedy": false}
+  POST /predict   {"board": [[...4x4 exponents...]], "greedy": false,
+                   "search": 0}
       -> {"action": 0..3, "direction": "UP", "probs": [...4], "value": v,
           "legal": [bool x4]}
   POST /predict_batch {"boards": [[[...]], ...]} -> {"actions": [...], ...}
   GET  /healthz   -> {"status": "ok", "model": {...}}
 
-Every request runs the merge (legality) and the model forward on the
-service's device: on CUDA, the merge is the hand-written kernel.
-``"search" > 0`` (expectimax) is not yet ported and answers 400.
+``"search": 1``/``2``/``3`` picks the move by expectimax search of that depth
+(``algo/search.py``) instead of the raw policy; the answer then carries the
+per-action ``search_scores`` (``None`` for an illegal action) beside the
+policy's probs and value. The search coefficients come from the checkpoint's
+train state (``load_search_coefs``; pure EV with a warning without one). At
+depth 3 the inner max nodes are pruned to the top 2 actions by 1-ply score
+and a batch is scored 16 boards at a time, as the JAX server does.
+
+Every request runs the merge (legality, and every level of a search) and the
+model forward on the service's device: on CUDA, the merge is the
+hand-written kernel. MLP and URM checkpoints alike.
 
 Usage: python -m tpu2048_torch.serve --checkpoint checkpoints_expG
            [--port 8787] [--device cuda]
@@ -26,9 +35,10 @@ import numpy as np
 import torch
 
 from . import DIRECTION_NAMES
+from .algo.search import expectimax_scores
 from .env import engine
 from .models.encoding import encode_boards
-from .train.evaluate import load_model_checkpoint
+from .train.evaluate import load_model_checkpoint, load_search_coefs
 
 
 class PolicyService:
@@ -40,6 +50,23 @@ class PolicyService:
         self.device = next(self.model.parameters()).device
         # Host-side sampling stream, seeded as the reference's.
         self._rng = np.random.default_rng(0)
+        self._search_coefs = load_search_coefs(checkpoint_path)
+
+    # Depth-3 guards, as in the JAX server: the exact inner tree is
+    # (4*32)^2 subproblems per board, so inner max nodes keep the top 2
+    # actions, and a batch is scored in chunks of 16 boards to bound the
+    # memory of one call.
+    DEPTH3_PRUNE_K = 2
+    DEPTH3_CHUNK = 16
+
+    @torch.inference_mode()
+    def _search_scores(self, boards: np.ndarray, depth: int) -> np.ndarray:
+        b = torch.as_tensor(boards, dtype=torch.int32, device=self.device)
+        prune_k = self.DEPTH3_PRUNE_K if depth >= 3 else 0
+        chunk = self.DEPTH3_CHUNK if depth >= 3 else max(len(b), 1)
+        scores = [expectimax_scores(self.model, part, None, self._search_coefs,
+                                    depth, prune_k) for part in b.split(chunk)]
+        return torch.cat(scores).cpu().numpy()
 
     @torch.inference_mode()
     def _forward(self, boards: np.ndarray) -> tuple:
@@ -60,8 +87,6 @@ class PolicyService:
 
     def predict(self, boards: np.ndarray, greedy: bool = False,
                 search: int = 0) -> dict:
-        if search:
-            raise ValueError("search not yet ported in tpu2048_torch")
         boards = np.asarray(boards, np.int32)
         squeeze = boards.ndim == 2
         if squeeze:
@@ -69,7 +94,12 @@ class PolicyService:
         if boards.ndim != 3 or boards.shape[1:] != (4, 4):
             raise ValueError(f"boards must be 4x4, got shape {boards.shape}")
         probs, value, legal = self._forward(boards)
-        if greedy:
+        search_scores = None
+        if search:
+            depth = max(1, min(int(search), 3))
+            search_scores = self._search_scores(boards, depth)
+            actions = search_scores.argmax(-1)
+        elif greedy:
             actions = probs.argmax(-1)
         else:
             cum = probs.cumsum(-1)
@@ -86,6 +116,10 @@ class PolicyService:
             "values": value.tolist(),
             "legal": legal.tolist(),
         }
+        if search_scores is not None:
+            # -inf (illegal) is not JSON; clients read legality from "legal".
+            out["search_scores"] = np.where(
+                np.isfinite(search_scores), search_scores, None).tolist()
         if squeeze:
             out = {
                 "action": out["actions"][0],
@@ -93,6 +127,8 @@ class PolicyService:
                 "probs": out["probs"][0],
                 "value": out["values"][0],
                 "legal": out["legal"][0],
+                **({"search_scores": out["search_scores"][0]}
+                   if search_scores is not None else {}),
             }
         return out
 

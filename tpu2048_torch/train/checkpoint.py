@@ -79,11 +79,14 @@ def jax_flatten_order(names) -> list:
 
 
 def read_npz(path) -> tuple:
-    """(arrays keyed as stored, embedded manifest or None). Unreadable,
-    truncated or bit-rotted files raise :class:`CheckpointCorruptError`."""
+    """(arrays keyed as stored, embedded manifest or None). A missing file
+    raises FileNotFoundError; unreadable, truncated or bit-rotted files raise
+    :class:`CheckpointCorruptError`."""
     try:
         data = np.load(path)
         files = set(data.files)
+    except FileNotFoundError:
+        raise
     except _CORRUPTION_ERRORS + (ValueError,) as e:
         raise CheckpointCorruptError(
             f"checkpoint {path} is unreadable ({type(e).__name__}: {e}); "
