@@ -37,12 +37,27 @@ raises and the run exits non-zero:
   urm      checkpoints_urm_r5 on the card: each block and the whole forward
            on 256 boards against the CPU, then a greedy run_eval of 256
            games with an average above a floor
+  train    a fresh run of the expG recipe (MLP H=384x3, 512 lanes x 256
+           steps, batch 4096, Muon+AdamW, adaptive entropy), 3 steps: step 1
+           (warmup multiplier 0) leaves every parameter bit-identical and
+           steps 2-3 change them; every scalar finite; 131,072 env steps and
+           ceil(S/4096) minibatches a step; the first policy uniform over the
+           legal moves; 512 merge launches a step. Then one learner
+           minibatch on the step-1 chunk, on the card and on a CPU copy
+           (same parameters, optimizer state, plan and shuffle): loss and
+           gradient norm to LEARNER_RTOL, new parameters to LEARNER_ATOL
+  train_resume  a copy of checkpoints_expG's train_state and env_carry
+           (JAX-written, step 19,999) resumed for 2 steps of the same
+           recipe with an eval of 32 sampled games after each: it starts at
+           step 20000 on the 512 carried boards, its completed episodes and
+           its eval average clear floors fixed before the first run, and
+           its step-20001 train_state reads back
   kernels  one JSON line per the port's kernels: check, launches (by
            phase), times (at the served batch, and per timed N with the
            launch floor and the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
-after the urm phase: they count the main path only. The last line is
+after the train_resume phase: they count the main path only. The last line is
 {"ok": true, "device": {...}}. Imports torch, numpy, the standard library and
 the port; never JAX and never the tpu2048 package.
 """
@@ -50,17 +65,27 @@ the port; never JAX and never the tpu2048 package.
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from tpu2048_torch.algo import advantage as A
+from tpu2048_torch.algo import augment as AUG
+from tpu2048_torch.algo import update as U
 from tpu2048_torch.env import engine
 from tpu2048_torch.models.encoding import encode_boards
+from tpu2048_torch.models.mlp import param_labels
 from tpu2048_torch.ops import merge
+from tpu2048_torch.ops import optimizer as opt
 from tpu2048_torch.serve import PolicyService
+from tpu2048_torch.train import cli
+from tpu2048_torch.train import loop
 from tpu2048_torch.train.evaluate import (evaluate_checkpoint,
                                           load_model_checkpoint, run_eval)
 from tpu2048_torch.utils.profiling import device_ms
@@ -100,6 +125,32 @@ URM_MIN_AVG = 8000
 # JAX package: 2e-6 per block grows to 5e-5 in the logits), hence 1e-4.
 URM_BLOCK_TOL = 1e-5
 URM_FORWARD_TOL = 1e-4
+# The expG recipe (scripts/train_expG_packed_ppo.sh) as the port runs it:
+# no viz export, no best-episode capture (neither is ported).
+TRAIN_RECIPE = [
+    "--packed", "--lanes", "512", "--horizon", "256", "--batch-size", "4096",
+    "--lr", "1e-3", "--critic-lr", "1e-4", "-H", "384", "--num-layers", "3",
+    "--gamma", "0.995", "--dropout", "0.0", "--entropy", "0.02", "--adaptive-beta",
+    "--target-entropy", "0.25", "--beta-min", "0.001", "--beta-max", "0.05",
+    "--beta-lr", "0.005", "--points", "0.10", "--mono", "1.0", "--critic", "0.2",
+    "--rtg-beta", "0.99", "--warmup-steps", "20", "--upsample-ratio", "0.25",
+    "-t", "mlp", "--no-kl-diagnostic", "--no-packed-capture", "--print-freq", "1000"]
+TRAIN_STEPS = 3
+ENV_STEPS_PER_STEP = 512 * 256
+MERGES_PER_STEP = 2 * 256  # all_moves of the boards, then of the next boards
+# One learner minibatch, card against CPU: f32 GEMMs summed in another order
+# and bf16 Newton-Schulz products rounded on other units.
+LEARNER_ROWS, LEARNER_SLOTS = 3072, 512  # + 2 x 512 planned rows: one minibatch
+LEARNER_RTOL = 1e-4
+LEARNER_ATOL = 1e-4
+RESUME_SOURCE = ROOT / "checkpoints_expG"  # step 19,999 of the JAX run
+RESUME_STEPS = 20002
+RESUME_EVAL_GAMES = 32
+# Floors fixed before the first card run. The JAX run's EMA of the completed
+# episodes' average at step 19,999 is 22,716 (TPU, train_state.json), and
+# its lr is about 0 this near the end of the cosine schedule.
+RESUME_MIN_EPISODE_AVG = 15000
+RESUME_MIN_EVAL_AVG = 12000
 
 
 def phase(name: str, t0: float, text: str) -> None:
@@ -296,6 +347,209 @@ def urm_phase(by_phase: dict, device="cuda") -> None:
           f"{by_phase['urm']}")
 
 
+def learner_card_vs_cpu(cfg, state_dict: dict, opt_state, traj) -> str:
+    """One learner minibatch of LEARNER_ROWS real rows of ``traj`` and a plan
+    of LEARNER_SLOTS slots, schedule multiplier 1, on the card and on a CPU
+    copy from the same parameters, optimizer state, plan and shuffle;
+    raises beyond LEARNER_RTOL / LEARNER_ATOL."""
+    device = traj.valid.device
+    adv = A.compute_packed(traj.points, traj.mono_before, traj.mono_after,
+                           traj.empt_before, traj.empt_after, traj.value_pred,
+                           traj.valid, traj.done_here, traj.boot_value,
+                           cfg.reward_weights, cfg.gamma, A.RtgMoments.initial(device),
+                           cfg.rtg_beta, 1)
+
+    def rows(x):
+        return x.reshape((-1,) + x.shape[2:])[:LEARNER_ROWS].cpu()
+
+    gen = torch.Generator().manual_seed(7)
+    plan = AUG.plan(gen, LEARNER_SLOTS, torch.tensor(LEARNER_SLOTS),
+                    torch.ones(LEARNER_ROWS, dtype=torch.bool))
+    ds = U.Dataset(board_before=rows(traj.board_before), action=rows(traj.action).long(),
+                   action_mask=rows(traj.action_mask), advantage=rows(adv["advantage"]),
+                   G_norm=rows(adv["G_norm"]), logprobs=rows(traj.logprobs),
+                   valid=torch.cat([torch.ones(LEARNER_ROWS, dtype=torch.bool), plan.valid]),
+                   aug_src=plan.src, aug_tf=plan.transform)
+    perm = torch.rand(1, ds.valid.shape[0], generator=gen)
+
+    def run(dev):
+        _, model, _ = loop.build_model(cfg)
+        model.load_state_dict(state_dict)
+        model.to(dev).eval()
+        st = opt.OptState(*({k: v.to(dev, copy=True) for k, v in part.items()} for part in
+                            (opt_state.momentum, opt_state.m, opt_state.v)), opt_state.step)
+        fn = U.make_optimize_fn(model, param_labels(model), opt.OptimizerConfig(
+            learning_rate=cfg.learning_rate, critic_lr=cfg.critic_lr), cfg.batch_size, 1,
+            kl_diagnostic=False)
+        stats = fn(st, U.Dataset(*(None if x is None else x.to(dev) for x in ds)),
+                   cfg.entropy_strength, cfg.critic_strength, np.float32(1.0),
+                   perm_draws=perm.to(dev))
+        return stats, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+    (card, card_p), (cpu, cpu_p) = run(device), run("cpu")
+    if float(card.num_batches) != 1.0:
+        raise AssertionError(f"{float(card.num_batches)} minibatches, expected 1")
+    for name in ("loss", "grad_norm"):
+        g, w = float(getattr(card, name)), float(getattr(cpu, name))
+        if not abs(g - w) <= LEARNER_RTOL * abs(w):
+            raise AssertionError(f"learner {name}: card {g} vs CPU {w}")
+    err = 0.0
+    for n, w in cpu_p.items():
+        d = float((card_p[n] - w).abs().max())
+        if d > LEARNER_ATOL:
+            raise AssertionError(f"learner {n}: card vs CPU max |diff| {d} > {LEARNER_ATOL}")
+        err = max(err, d)
+    moved = max(float((cpu_p[n] - state_dict[n]).abs().max()) for n in cpu_p)
+    return (f"learner minibatch card == CPU: loss {float(card.loss):.7g} vs "
+            f"{float(cpu.loss):.7g}, grad norm {float(card.grad_norm):.7g} vs "
+            f"{float(cpu.grad_norm):.7g} (rtol {LEARNER_RTOL}); params max |diff| "
+            f"{err:.3g} (atol {LEARNER_ATOL}; largest move of a weight {moved:.3g})")
+
+
+def train_phase(by_phase: dict, device="cuda") -> None:
+    """A fresh 3-step run of the expG recipe through the CLI's configuration
+    and the trainer, then the learner card against CPU."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cli.train_config(TRAIN_RECIPE + ["--steps", str(TRAIN_STEPS),
+                                               "--checkpoint-dir", tmp, "--device", device])
+        key = np.array([0, cfg.seed], np.uint32)
+        _, init_model, _ = loop.build_model(cfg, loop.make_generator("cpu", *key, loop.INIT))
+        init = {n: p.detach().clone() for n, p in init_model.named_parameters()}
+        steps, marks = [], [merge.launches]
+
+        def on_step(info):
+            sync(device)
+            marks.append(merge.launches)
+            rec = dict(step=info["step"], scalars=info["scalars"],
+                       rollout_s=info["rollout_s"], learner_s=info["learner_s"],
+                       launches=marks[-1] - marks[-2],
+                       params={n: p.detach().cpu().clone()
+                               for n, p in info["model"].named_parameters()})
+            if info["step"] == 0:
+                st = info["opt_state"]
+                rec["first"] = (
+                    {n: p.detach().cpu().clone() for n, p in info["model"].state_dict().items()},
+                    opt.OptState(*({k: v.clone() for k, v in part.items()}
+                                   for part in (st.momentum, st.m, st.v)), st.step),
+                    info["traj"])
+            steps.append(rec)
+
+        summary = loop.train(cfg, on_step=on_step)
+    by_phase["train"] = merge.launches - before
+    if [s["step"] for s in steps] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"steps run: {[s['step'] for s in steps]}")
+    for n, p in steps[0]["params"].items():
+        if not torch.equal(p, init[n]):
+            raise AssertionError(f"step 1 (warmup multiplier 0) changed {n}")
+    for i in (1, 2):
+        if all(torch.equal(steps[i]["params"][n], steps[i - 1]["params"][n]) for n in init):
+            raise AssertionError(f"step {i + 1} changed no parameter")
+    for s in steps:
+        sc = s["scalars"]
+        bad = [k for k, v in sc.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {s['step'] + 1}: non-finite {bad}")
+        if sc["env_steps"] != ENV_STEPS_PER_STEP:
+            raise AssertionError(f"step {s['step'] + 1}: {sc['env_steps']} env steps")
+        rows = sc["samples"] + sc["augmented_samples"]
+        if sc["num_batches"] != math.ceil(rows / cfg.batch_size):
+            raise AssertionError(f"step {s['step'] + 1}: {sc['num_batches']} minibatches "
+                                 f"for {rows} rows")
+        if s["launches"] != MERGES_PER_STEP:
+            raise AssertionError(f"step {s['step'] + 1}: {s['launches']} merge launches")
+    state_dict, opt_state, traj = steps[0]["first"]
+    n_legal = (~traj.action_mask).sum(-1).to(torch.float32)
+    uniform = float(n_legal.log().mean())
+    rollout_gap = float((traj.entropy - n_legal.log()).abs().max())
+    first_entropy = steps[0]["scalars"]["entropy"]
+    if rollout_gap > 1e-5 or abs(first_entropy - uniform) > 0.02:
+        raise AssertionError(f"first policy not uniform over legal moves: rollout gap "
+                             f"{rollout_gap}, learner entropy {first_entropy} vs {uniform}")
+    check = learner_card_vs_cpu(cfg, state_dict, opt_state, traj)
+    per_step = "; ".join(
+        f"step {s['step'] + 1}: rollout {s['rollout_s']:.3f} s, learner {s['learner_s']:.3f} s, "
+        f"{ENV_STEPS_PER_STEP / (s['rollout_s'] + s['learner_s']):.0f} env steps/s, "
+        f"{s['scalars']['num_batches']:.0f} minibatches, entropy {s['scalars']['entropy']:.4f}, "
+        f"avg completed episode {s['scalars']['batch_avg_score']:.1f}"
+        for s in steps)
+    phase("train", t0, f"expG recipe, {TRAIN_STEPS} fresh steps on the card: step 1 left "
+          f"every parameter bit-identical, steps 2-3 moved them; scalars finite; "
+          f"{ENV_STEPS_PER_STEP} env steps and ceil(S/{cfg.batch_size}) minibatches a step; "
+          f"first policy uniform over legal moves (learner entropy {first_entropy:.5f} vs "
+          f"{uniform:.5f}); {MERGES_PER_STEP} merge launches a step ({by_phase['train']} "
+          f"in all); {per_step}; trained in {summary['elapsed']:.3f} s; {check}")
+
+
+def train_resume_phase(by_phase: dict, device="cuda") -> None:
+    """The JAX run's own step-19,999 state resumed on the card for 2 steps,
+    with eval-in-train after each."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in ("train_state.npz", "train_state.json", "env_carry.npz", "env_carry.json"):
+            shutil.copy(RESUME_SOURCE / f, tmp)
+        with np.load(RESUME_SOURCE / "env_carry.npz") as z:
+            carried = torch.as_tensor(z["['boards']"])
+        cfg = cli.train_config(TRAIN_RECIPE + [
+            "--steps", str(RESUME_STEPS), "--resume", "--checkpoint-dir", tmp,
+            "--log-dir", tmp, "--eval-freq", "1", "--eval-games", str(RESUME_EVAL_GAMES),
+            "--device", device])
+        steps = []
+
+        def on_step(info):
+            traj = info["traj"]
+            done = traj.done_here
+            steps.append(dict(
+                step=info["step"], first=traj.board_before[0].cpu(),
+                score_sum=float(traj.ep_score[done].to(torch.float64).sum()),
+                episodes=int(done.sum()), rollout_s=info["rollout_s"],
+                learner_s=info["learner_s"], scalars=info["scalars"],
+                params={n: p.detach().cpu().clone()
+                        for n, p in info["model"].named_parameters()}))
+
+        summary = loop.train(cfg, on_step=on_step)
+        by_phase["train_resume"] = merge.launches - before
+        evals = [json.loads(line) for f in Path(tmp).glob("*.jsonl")
+                 for line in f.read_text().splitlines() if "eval/avg_score" in line]
+        _, model, _ = loop.build_model(cfg)
+        _, _, _, manifest = loop.load_train_state(tmp, model, "cpu")
+        final = {n: p.detach() for n, p in model.named_parameters()}
+    if [s["step"] for s in steps] != [20000, 20001]:
+        raise AssertionError(f"resumed steps {[s['step'] for s in steps]}, expected 20000-20001")
+    if not torch.equal(steps[0]["first"], carried):
+        raise AssertionError("the first chunk did not start from the 512 carried boards")
+    episodes = sum(s["episodes"] for s in steps)
+    episode_avg = sum(s["score_sum"] for s in steps) / max(episodes, 1)
+    if episodes == 0 or episode_avg <= RESUME_MIN_EPISODE_AVG:
+        raise AssertionError(f"{episodes} completed episodes, avg {episode_avg} <= "
+                             f"{RESUME_MIN_EPISODE_AVG}")
+    if [e["step"] for e in evals] != [20000, 20001]:
+        raise AssertionError(f"evals at steps {[e['step'] for e in evals]}")
+    for e in evals:
+        if e["eval/avg_score"] <= RESUME_MIN_EVAL_AVG:
+            raise AssertionError(f"eval at step {e['step']}: avg {e['eval/avg_score']} <= "
+                                 f"{RESUME_MIN_EVAL_AVG}")
+    if manifest["train_step"] != RESUME_STEPS - 1:
+        raise AssertionError(f"saved train_state is at step {manifest['train_step']}")
+    for n, p in final.items():
+        if not torch.equal(p, steps[-1]["params"][n]):
+            raise AssertionError(f"the saved step-{RESUME_STEPS - 1} train_state differs at {n}")
+    phase("train_resume", t0, f"{RESUME_SOURCE.name} (JAX-written, step 19,999) resumed "
+          f"at step 20000 on its 512 carried boards, {len(steps)} steps: {episodes} "
+          f"completed episodes, avg {episode_avg:.1f} (floor {RESUME_MIN_EPISODE_AVG}); "
+          "sampled evals of " f"{RESUME_EVAL_GAMES} games: "
+          + ", ".join(f"step {e['step']} avg {e['eval/avg_score']} max "
+                      f"{e['eval/max_score']} pct_2048 {e['eval/pct_2048']}" for e in evals)
+          + f" (floor {RESUME_MIN_EVAL_AVG}); step-{RESUME_STEPS - 1} train_state read back "
+          f"equal; " + "; ".join(
+              f"step {s['step']}: rollout {s['rollout_s']:.3f} s, learner "
+              f"{s['learner_s']:.3f} s, sched_mult {s['scalars']['sched_mult']:.3g}"
+              for s in steps)
+          + f"; {summary['elapsed']:.3f} s in all; merge launches {by_phase['train_resume']}")
+
+
 def main() -> None:
     # 1. device
     t0 = time.perf_counter()
@@ -436,8 +690,10 @@ def main() -> None:
     search_phase(svc, by_phase)
     search_eval_phase(by_phase)
     urm_phase(by_phase)
+    train_phase(by_phase)
+    train_resume_phase(by_phase)
 
-    # 11. kernels
+    # 13. kernels
     t0 = time.perf_counter()
     main_launches = merge.launches
     if main_launches != sum(by_phase.values()):

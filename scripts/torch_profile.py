@@ -37,6 +37,17 @@ each wrapper replays the kernel, warm and with the library's first launch
 inside the capture.
 ``--merge-only`` skips the eval and serve measurements.
 
+``--train-only`` splits train steps of the expG recipe (MLP H=384x3, 512
+lanes x 256 steps, batch 4096, Muon+AdamW), resumed from checkpoints_expG's
+state, into rollout, advantage and learner: host ms of each in a step run
+without the profiler (each part ended by a synchronize), device ms of each
+in the next step, run under ``torch.profiler`` (the sum of its kernels),
+the rollout's host and device ms per env step (a trip of all 512 lanes),
+and the learner per minibatch: forward+backward, Newton-Schulz and AdamW,
+each replayed alone at the recipe's shapes under the profiler, and the rest
+(the batch gather and augmentation, the loss bookkeeping, the clip, Muon's
+momentum and update) as the difference.
+
 The search (``--search-only`` runs it alone) is measured at depth 1 over 256
 games of checkpoints_expG, depth 2 over 32 games of checkpoints_expA (each
 a few moves of ``play`` with ``search``, from fresh boards: a move's work is
@@ -74,6 +85,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from tpu2048_torch.algo import advantage as A  # noqa: E402
+from tpu2048_torch.algo import losses  # noqa: E402
+from tpu2048_torch.algo import rollout as R  # noqa: E402
 from tpu2048_torch.algo.rollout import masked_policy, play  # noqa: E402
 from tpu2048_torch.algo.search import expectimax_scores  # noqa: E402
 from tpu2048_torch.env import engine  # noqa: E402
@@ -81,6 +95,9 @@ from tpu2048_torch.models.encoding import encode_boards  # noqa: E402
 from tpu2048_torch.ops import _build, merge  # noqa: E402
 from tpu2048_torch.serve import PolicyService  # noqa: E402
 from tpu2048_torch.train.evaluate import load_model_checkpoint, load_search_coefs  # noqa: E402
+from tpu2048_torch.ops import adamw, muon  # noqa: E402
+from tpu2048_torch.train import cli, loop  # noqa: E402
+from tpu2048_torch.utils.logger import MetricLogger  # noqa: E402
 from tpu2048_torch.utils.profiling import cycles_per_ms, device_ms, host_ms  # noqa: E402
 
 GAMES = 256
@@ -534,6 +551,168 @@ def merge_timing(baseline) -> list:
     return rows
 
 
+TRAIN_CHECKPOINT = ROOT / "checkpoints_expG"
+TRAIN_STEP = 100  # a step past the warmup: the schedule's multiplier is not 0
+
+
+def profiled(fn, reps: int = 1, kernel: str = "merge4") -> tuple:
+    """(stats, the last call's result) of ``reps`` calls of ``fn()`` under
+    ``torch.profiler``, per call: ``device_ms`` (all its kernels; None if
+    the profile holds none), ``named_ms`` (the kernels whose name holds
+    ``kernel``), ``kernels`` (device kernels and copies) and ``host_ops``
+    (top-level host operations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+    by_kernel = kernel_us(prof)
+    total_us = sum(by_kernel.values())
+    kernels, host_ops = launch_counts(prof)
+    named_us = sum(v for k, v in by_kernel.items() if kernel in k)
+    return {"device_ms": total_us / 1e3 / reps if total_us else None,
+            "named_ms": named_us / 1e3 / reps if total_us else None,
+            "kernels": kernels / reps, "host_ops": host_ops / reps}, out
+
+
+def timed_host_ms(fn) -> tuple:
+    """(host ms of ``fn()`` ended by a synchronize, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def train_step_profile() -> dict:
+    """One recipe train step, split (see the module docstring)."""
+    import copy
+
+    from tpu2048_torch.algo import update as U
+    from tpu2048_torch.ops import optimizer as opt
+
+    argv = ["--packed", "--lanes", "512", "--horizon", "256", "--batch-size", "4096",
+            "--lr", "1e-3", "--critic-lr", "1e-4", "-H", "384", "--num-layers", "3",
+            "--gamma", "0.995", "--dropout", "0.0", "--entropy", "0.02",
+            "--adaptive-beta", "--target-entropy", "0.25", "--points", "0.10",
+            "--mono", "1.0", "--critic", "0.2", "--rtg-beta", "0.99",
+            "--warmup-steps", "20", "--upsample-ratio", "0.25", "--no-kl-diagnostic",
+            "--no-packed-capture", "--steps", "20000", "--device", "cuda"]
+    cfg = cli.train_config(argv)
+    _, model, labels = loop.build_model(cfg)
+    model.to("cuda").eval()
+    opt_state, moments, key, _ = loop.load_train_state(TRAIN_CHECKPOINT, model, "cuda")
+    carry = loop.load_env_carry(TRAIN_CHECKPOINT, cfg.lanes, "cuda", MetricLogger())
+    ocfg = opt.OptimizerConfig(learning_rate=cfg.learning_rate, critic_lr=cfg.critic_lr)
+    process = loop.make_process_fn(cfg, U.make_optimize_fn(
+        model, labels, ocfg, cfg.batch_size, cfg.ppo_epochs, kl_diagnostic=False))
+
+    def gens(step):
+        return {s: loop.make_generator("cuda", *key, step, s)
+                for s in (loop.AUGMENT, loop.PERMUTE, loop.DROPOUT)}
+
+    def rollout(step, carry):
+        return R.rollout_packed(
+            model, carry, cfg.horizon,
+            action_generator=loop.make_generator("cuda", *key, step, loop.ACTION),
+            env_generator=loop.make_generator("cuda", *carry.env_key, step))
+
+    # Warm-up: one whole step (cuBLAS handles, the kernel build).
+    traj, carry = rollout(TRAIN_STEP - 1, carry)
+    moments, out = process(opt_state, traj, moments, TRAIN_STEP, cfg.entropy_strength,
+                           generators=gens(TRAIN_STEP - 1))
+    out["scalars"].cpu()
+
+    def advantage(traj, step):
+        return A.compute_packed(
+            traj.points, traj.mono_before, traj.mono_after, traj.empt_before,
+            traj.empt_after, traj.value_pred, traj.valid, traj.done_here, traj.boot_value,
+            cfg.reward_weights, cfg.gamma, moments, cfg.rtg_beta, step)
+
+    # Host times: a step without the profiler.
+    merge_before = merge.launches
+    roll_host, (traj, carry) = timed_host_ms(lambda: rollout(TRAIN_STEP, carry))
+    merges = merge.launches - merge_before
+    adv_host, _ = timed_host_ms(lambda: advantage(traj, TRAIN_STEP + 1))
+    proc_host, (moments, out) = timed_host_ms(lambda: process(
+        opt_state, traj, moments, TRAIN_STEP + 1, cfg.entropy_strength,
+        generators=gens(TRAIN_STEP)))
+    sc = dict(zip(loop.SCALAR_KEYS, out["scalars"].tolist()))
+    nb = int(sc["num_batches"])
+    # Device times: the next step under the profiler.
+    roll_p, (traj, carry) = profiled(lambda: rollout(TRAIN_STEP + 1, carry))
+    adv_p, _ = profiled(lambda: advantage(traj, TRAIN_STEP + 2))
+    proc_p, (_, out2) = profiled(lambda: process(
+        opt_state, traj, moments, TRAIN_STEP + 2, cfg.entropy_strength,
+        generators=gens(TRAIN_STEP + 1)))
+    roll_dev, adv_dev, proc_dev = (p["device_ms"] for p in (roll_p, adv_p, proc_p))
+    nb_dev = int(dict(zip(loop.SCALAR_KEYS, out2["scalars"].tolist()))["num_batches"])
+
+    # Per-minibatch parts, replayed alone at the recipe's shapes.
+    flat = lambda x: x.reshape((-1,) + x.shape[2:])[:cfg.batch_size]  # noqa: E731
+    inputs = encode_boards(flat(traj.board_before).to(torch.int32))
+    params = dict(model.named_parameters())
+    weights = torch.ones(cfg.batch_size, device="cuda")
+
+    def fwd_bwd():
+        model.train()
+        logits, values = model(inputs)
+        loss, _ = losses.ppo_loss(logits, values, flat(traj.action).long(),
+                                  flat(traj.action_mask), flat(traj.value_pred),
+                                  flat(traj.value_pred), flat(traj.logprobs), weights,
+                                  kl_strength=0.02, critic_strength=0.2)
+        return torch.autograd.grad(loss, list(params.values()))
+
+    groups = collections.defaultdict(list)
+    for n, p in params.items():
+        if labels[n].startswith("muon"):
+            groups[tuple(p.shape)].append(p.detach())
+    stacks = [torch.stack(g) for g in groups.values()]
+    one_d = [n for n in params if labels[n].startswith("adamw")]
+    st = copy.deepcopy(opt_state)
+    p1 = [params[n].detach().clone() for n in one_d]
+    g1 = [torch.randn_like(p) * 1e-3 for p in p1]
+    m1, v1 = [st.m[n] for n in one_d], [st.v[n] for n in one_d]
+    parts = {
+        "forward+backward": profiled(fwd_bwd, reps=5)[0]["device_ms"],
+        "newton_schulz": profiled(
+            lambda: [muon.newton_schulz(x) for x in stacks], reps=5)[0]["device_ms"],
+        "adamw": profiled(
+            lambda: adamw.update_(p1, g1, m1, v1, 5, np.float32(1e-3)), reps=5)[0]["device_ms"],
+    }
+    model.eval()
+    learner_dev = None if proc_dev is None or adv_dev is None else proc_dev - adv_dev
+    per_mb = None if learner_dev is None else learner_dev / nb_dev
+    if per_mb is not None and None not in parts.values():
+        parts["rest"] = per_mb - sum(parts.values())
+    trips = cfg.horizon
+    return {
+        "config": argv, "state": f"{TRAIN_CHECKPOINT.name} train_state/env_carry",
+        "train_steps": [TRAIN_STEP + 1, TRAIN_STEP + 2], "env_steps": sc["env_steps"],
+        "minibatches": [nb, nb_dev],
+        "merge_launches_rollout": merges,
+        "rollout": {"host_ms": roll_host, "device_ms": roll_dev,
+                    "host_ms_per_env_step": roll_host / trips,
+                    "device_ms_per_env_step": None if roll_dev is None else roll_dev / trips,
+                    "idle_share": None if roll_dev is None else 1 - roll_dev / roll_host,
+                    "merge_device_ms": roll_p["named_ms"],
+                    "kernels_per_env_step": roll_p["kernels"] / trips,
+                    "host_ops_per_env_step": roll_p["host_ops"] / trips},
+        "advantage": {"host_ms": adv_host, "device_ms": adv_dev},
+        "learner": {"host_ms": proc_host - adv_host, "device_ms": learner_dev,
+                    "host_ms_per_minibatch": (proc_host - adv_host) / nb,
+                    "device_ms_per_minibatch": per_mb,
+                    "device_ms_per_minibatch_parts": parts,
+                    "kernels_per_minibatch": (proc_p["kernels"] - adv_p["kernels"]) / nb_dev,
+                    "host_ops_per_minibatch": (proc_p["host_ops"] - adv_p["host_ops"]) / nb_dev,
+                    "idle_share": None if learner_dev is None
+                    else 1 - learner_dev / (proc_host - adv_host)},
+        "step_host_ms": roll_host + proc_host,
+        "env_steps_per_s": sc["env_steps"] / (roll_host + proc_host) * 1e3,
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=300)
@@ -541,6 +720,7 @@ def main() -> None:
     ap.add_argument("--merge-baseline", type=Path, default=None)
     ap.add_argument("--merge-only", action="store_true")
     ap.add_argument("--search-only", action="store_true")
+    ap.add_argument("--train-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -554,6 +734,12 @@ def main() -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     if args.search_only:
         search_all(result, out)
+        return
+    if args.train_only:
+        result["train"] = train_step_profile()
+        say(json.dumps(result["train"]))
+        out.write_text(json.dumps(result, indent=1))
+        say(f"written: {out}")
         return
     built = merge.build()
     baseline = None

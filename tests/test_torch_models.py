@@ -99,3 +99,61 @@ def test_state_dict_names_are_jax_key_paths():
     want = {".".join(str(getattr(k, "key", getattr(k, "idx", None))) for k in p):
             tuple(v.shape) for p, v in leaves}
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == want
+
+
+def test_fresh_mlp_zeroes_its_heads_as_mlp_init_does():
+    """A fresh GameMLP: zero heads (as ``mlp.init(zero_heads=True)``),
+    kaiming-relu weights within sqrt(6 / fan_in), zero biases, layer norms
+    of gain 1 and bias 0; the first policy is uniform and the value 0."""
+    cfg = MLPConfig(hidden_dim=32, num_layers=2)
+    model = GameMLP(cfg, generator=torch.Generator().manual_seed(0))
+    jparams = jmlp.init(jax.random.key(0), JMLPConfig(**cfg.to_dict()))
+    for name, p in model.state_dict().items():
+        if name.startswith(("action_head", "value_head")):
+            assert not p.any(), name
+            assert not np.asarray(jparams[name.split(".")[0]][name.split(".")[1]]).any()
+        elif name.endswith("lin.w"):
+            bound = np.sqrt(6.0 / p.shape[1])
+            assert p.abs().max() <= bound and p.abs().max() > 0.9 * bound, name
+            assert abs(float(p.mean())) < 0.1 * bound and float(p.std()) > 0.5 * bound, name
+        elif name.endswith("ln.g"):
+            assert torch.equal(p, torch.ones_like(p)), name
+        else:
+            assert name.endswith("ln.b") and not p.any(), name
+    logits, value = model.eval()(tencoding.encode_boards(torch.as_tensor(_boards(3, 8))))
+    assert not logits.any() and not value.any()
+    live = GameMLP(cfg, zero_heads=False, generator=torch.Generator().manual_seed(0))
+    assert live.action_head.w.any() and live.value_head.w.any()
+    again = GameMLP(cfg, generator=torch.Generator().manual_seed(0))
+    for (n, p), (_, q) in zip(model.named_parameters(), again.named_parameters()):
+        assert torch.equal(p, q), n  # seeded: the same model again
+
+
+def test_param_labels_equal_the_reference():
+    from tpu2048_torch.models.mlp import param_labels
+
+    jparams = jmlp.init(jax.random.key(0), JMLPConfig(hidden_dim=16, num_layers=3))
+    leaves = jax.tree_util.tree_flatten_with_path(jmlp.param_labels(jparams))[0]
+    want = {".".join(str(getattr(k, "key", getattr(k, "idx", None))) for k in p): v
+            for p, v in leaves}
+    got = param_labels(GameMLP(MLPConfig(hidden_dim=16, num_layers=3)))
+    assert got == want
+    assert got["action_head.w"] == "muon_other" and got["value_head.w"] == "muon_value"
+    assert got["value_head.b"] == "adamw_value" and got["stem.ln.g"] == "adamw_other"
+
+
+def test_train_mode_dropout_draws_from_the_callers_generator():
+    model = GameMLP(MLPConfig(hidden_dim=32, num_layers=2, dropout=0.5),
+                    zero_heads=False, generator=torch.Generator().manual_seed(1))
+    x = tencoding.encode_boards(torch.as_tensor(_boards(4, 16)))
+    model.train()
+    a, _ = model(x, torch.Generator().manual_seed(5))
+    b, _ = model(x, torch.Generator().manual_seed(5))
+    c, _ = model(x, torch.Generator().manual_seed(6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(ValueError, match="generator"):
+        model(x)
+    model.eval()
+    e1, _ = model(x)
+    e2, _ = model(x, torch.Generator().manual_seed(6))
+    assert torch.equal(e1, e2)  # eval mode: no dropout

@@ -3,13 +3,17 @@
 Mirrors the module layout of ``tpu2048`` so each counterpart is easy to find:
 
   env/      the batched 2048 engine (merge, spawn, step) on torch tensors,
-            and the heuristics of the shaping potential
-  ops/      hand-written CUDA kernels (``csrc/``), their nvcc build and wrappers
-  models/   board encoding, the GameMLP and GameURM actor-critics as
-            ``nn.Module``s (forward in eval mode)
-  algo/     the evaluation game loop, masked policy and expectimax search
-  train/    checkpoint reader, ``evaluate`` (greedy, sampled, search) and
-            its CLI
+            the heuristics of the shaping potential, board symmetries
+  ops/      hand-written CUDA kernels (``csrc/``), their nvcc build and
+            wrappers; the optimizer (Muon + AdamW) and the lr schedule
+  models/   board encoding, initializers, the GameMLP and GameURM
+            actor-critics as ``nn.Module``s (the URM forward only)
+  algo/     the game loops (evaluation and packed training rollout), masked
+            policy, expectimax search, advantage, augmentation, PPO losses
+            and the learner
+  train/    checkpoints (read and write), the packed PPO trainer,
+            ``evaluate`` (greedy, sampled, search) and the CLI
+  utils/    card timing, training statistics, the metric logger
   serve.py  the HTTP policy server (policy, greedy and search modes)
 
 Imports torch, numpy and the standard library only — never ``jax`` and never

@@ -1,5 +1,6 @@
-"""The evaluation game loop: N games to the end, greedy, sampled or by
-expectimax search.
+"""The game loops: the evaluation loop (N games to the end, greedy, sampled
+or by expectimax search) and the packed rollout that training runs (below,
+``rollout_packed``).
 
 Counterpart of the eval-only part of ``tpu2048/algo/rollout.py::rollout`` and
 of ``tpu2048/algo/search.py::search_rollout`` (whose loop has the same alive,
@@ -18,7 +19,7 @@ and stop scoring. The loop stops when every game has ended or after
 
 Randomness is split as in the reference: the spawns have their own stream
 (a generator, or injected draws that replay another engine's spawns), and
-sampled actions have theirs.
+sampled actions have theirs. Neither loop runs under autograd.
 """
 
 from __future__ import annotations
@@ -27,9 +28,11 @@ import sys
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..env import engine
+from ..env import engine, heuristics
 from ..models.encoding import encode_boards
 from .search import expectimax_scores
 
@@ -113,3 +116,140 @@ def play(model, boards: torch.Tensor, max_steps: int, spawns, *,
     stacked = (torch.stack(actions) if actions
                else torch.zeros((0, n), dtype=torch.int64, device=boards.device))
     return PlayResult(total_points, final_board, num_moves, ended, stacked, steps)
+
+
+# ---------------------------------------------------------------------------
+# Packed (auto-reset) rollout for training: counterpart of ``EnvCarry``,
+# ``init_env_carry``, ``PackedTrajectory`` and ``rollout_packed`` in
+# ``tpu2048/algo/rollout.py``. ``lanes`` persistent games advance exactly
+# ``num_steps`` steps per chunk; a game that ends is replaced by a fresh
+# board in the same step, and the lanes' state carries over to the next
+# chunk, so every recorded step is a real move. The episode cut at the end
+# of a chunk is valued by the critic (``boot_value``) in the advantage stage.
+# ---------------------------------------------------------------------------
+
+
+class EnvCarry(NamedTuple):
+    """The lanes' state between chunks."""
+
+    boards: torch.Tensor  # (N, 4, 4) int32 live boards
+    env_key: np.ndarray  # (2,) uint32 seed material of the lanes' spawns
+    ep_points: torch.Tensor  # (N,) int32 score of the current episode so far
+    ep_moves: torch.Tensor  # (N,) int32 moves of the current episode so far
+
+
+def init_env_carry(env_key: np.ndarray, num_lanes: int, device,
+                   generator: torch.Generator) -> EnvCarry:
+    """Fresh boards for ``num_lanes`` lanes, spawned from ``generator``."""
+    zeros = torch.zeros(num_lanes, dtype=torch.int32, device=device)
+    return EnvCarry(engine.reset(num_lanes, device, generator=generator),
+                    np.asarray(env_key, np.uint32), zeros, zeros.clone())
+
+
+class PackedTrajectory(NamedTuple):
+    """(T, N, ...) records of a packed chunk, under the JAX package's names.
+    The episode fields are completion records: nonzero only where the step
+    ended an episode."""
+
+    board_before: torch.Tensor  # (T, N, 4, 4) int8
+    board_after: torch.Tensor  # (T, N, 4, 4) int8 (after the spawn, before a reset)
+    action: torch.Tensor  # (T, N) int8
+    target_action: torch.Tensor  # (T, N) int8 (== action)
+    target_probs: torch.Tensor  # (T, N, 4) float32 one-hot of the action
+    logprobs: torch.Tensor  # (T, N, 4) float32
+    action_mask: torch.Tensor  # (T, N, 4) bool, True = invalid
+    value_pred: torch.Tensor  # (T, N) float32
+    entropy: torch.Tensor  # (T, N) float32
+    points: torch.Tensor  # (T, N) int32
+    preview: torch.Tensor  # (T, N, 4) int32
+    max_created: torch.Tensor  # (T, N) int8
+    mono_before: torch.Tensor  # (T, N) int32
+    mono_after: torch.Tensor  # (T, N) int32 (0 on terminal steps)
+    empt_before: torch.Tensor  # (T, N) int32
+    empt_after: torch.Tensor  # (T, N) int32 (0 on terminal steps)
+    valid: torch.Tensor  # (T, N) bool, all True
+    done_here: torch.Tensor  # (T, N) bool, the step ended an episode
+    ep_start: torch.Tensor  # (T, N) bool, the step began an episode
+    ep_score: torch.Tensor  # (T, N) int32 completed episode's points
+    ep_len: torch.Tensor  # (T, N) int32 completed episode's moves
+    ep_tile: torch.Tensor  # (T, N) int32 completed episode's max tile value
+    boot_value: torch.Tensor  # (N,) float32 V(carry-out boards), critic units
+    steps_executed: int
+
+
+@torch.no_grad()
+def rollout_packed(model, carry: EnvCarry, num_steps: int, *,
+                   action_generator: torch.Generator | None = None,
+                   env_generator: torch.Generator | None = None,
+                   actions: torch.Tensor | None = None,
+                   spawns: torch.Tensor | None = None,
+                   resets: torch.Tensor | None = None) -> tuple:
+    """Step every lane ``num_steps`` times with auto-reset; returns
+    (PackedTrajectory, the next chunk's EnvCarry).
+
+    Actions are sampled from the masked policy with ``action_generator``,
+    spawns and fresh boards drawn from ``env_generator``. A test replays
+    another engine's chunk instead: ``actions`` (T, N), ``spawns`` (T, 2, N)
+    (``engine.spawn_tile`` draws) and ``resets`` (T, N, 4, 4), the board each
+    lane restarts from after step t if that step ends its game. Each step
+    merges twice (``all_moves`` of the boards and, inside ``engine.step``,
+    of the next boards), as the reference's chunk does; the loop reads
+    nothing back to the host."""
+    if model.training:
+        raise ValueError("rollout_packed runs the policy in eval mode")
+    boards, ep_points, ep_moves = carry.boards, carry.ep_points, carry.ep_moves
+    n, device = boards.shape[0], boards.device
+    recs = {k: [] for k in PackedTrajectory._fields[:-2]}
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    for t in range(num_steps):
+        moves = engine.all_moves(boards)
+        invalid = moves.action_mask
+        logits, value = model(encode_boards(boards))
+        _, logprobs, entropy = masked_policy(logits, invalid)
+        if actions is not None:
+            action = actions[t].long()
+        else:
+            action = torch.multinomial(logprobs.exp(), 1,
+                                       generator=action_generator)[:, 0]
+        mono_b, empt_b = heuristics.monotonicity(boards), heuristics.emptiness(boards)
+        draws = (spawns[t] if spawns is not None
+                 else engine.spawn_draws((n,), env_generator, device))
+        res = engine.step(boards, action, draws, moves=moves)
+        # The "after" potentials are taken before the spawn and are 0 on a
+        # terminal step (the reference's quirk).
+        sel = action[None, :, None, None].expand(1, n, 4, 4)
+        moved = torch.gather(moves.boards, 0, sel)[0]
+        done = res.done
+        mono_a = torch.where(done, 0, heuristics.monotonicity(moved))
+        empt_a = torch.where(done, 0, heuristics.emptiness(moved))
+        ep_points_new = ep_points + res.reward
+        ep_moves_new = ep_moves + 1
+        for k, v in (
+                ("board_before", boards.to(torch.int8)),
+                ("board_after", res.board.to(torch.int8)),
+                ("action", action.to(torch.int8)),
+                ("target_action", action.to(torch.int8)),
+                ("target_probs", F.one_hot(action, 4).to(torch.float32)),
+                ("logprobs", logprobs), ("action_mask", invalid),
+                ("value_pred", value[..., 0]), ("entropy", entropy),
+                ("points", res.reward), ("preview", moves.preview_rewards),
+                ("max_created", res.max_created.to(torch.int8)),
+                ("mono_before", mono_b), ("mono_after", mono_a),
+                ("empt_before", empt_b), ("empt_after", empt_a),
+                ("valid", valid), ("done_here", done),
+                ("ep_start", ep_moves_new == 1),
+                ("ep_score", torch.where(done, ep_points_new, 0)),
+                ("ep_len", torch.where(done, ep_moves_new, 0)),
+                ("ep_tile", torch.where(done, engine.max_tile_value(res.board), 0))):
+            recs[k].append(v)
+        fresh = (resets[t] if resets is not None
+                 else engine.reset(n, device, generator=env_generator))
+        boards = torch.where(done[:, None, None], fresh, res.board)
+        ep_points = torch.where(done, 0, ep_points_new)
+        ep_moves = torch.where(done, 0, ep_moves_new)
+    # The critic's value of the carry-out boards, in its own (normalised)
+    # units; a lane whose last step was terminal never reads it.
+    _, boot = model(encode_boards(boards))
+    traj = PackedTrajectory(**{k: torch.stack(v) for k, v in recs.items()},
+                            boot_value=boot[..., 0], steps_executed=num_steps)
+    return traj, EnvCarry(boards, carry.env_key, ep_points, ep_moves)

@@ -1,0 +1,151 @@
+"""The learner: shuffled minibatch PPO epochs with an optimizer step per
+minibatch (counterpart of ``tpu2048/algo/update.py``: ``Dataset``,
+``OptimizeStats``, ``make_optimize_fn``).
+
+ * The optimizer steps once per MINIBATCH; the learning-rate schedule ticks
+   once per train step (the multiplier is an input).
+ * Each epoch shuffles the rows by the stable argsort of uniform draws, with
+   invalid rows set to 2.0, so the valid rows come first; exactly
+   ``ceil(S / batch_size)`` minibatches run. The last window's start is
+   clamped to ``S_cap - batch_size`` and its rows are weighted by their true
+   position, so rows the previous minibatch trained get weight 0.
+ * Augmented rows are virtual: row r >= S_real is symmetry transform
+   ``aug_tf[r - S_real]`` of real row ``aug_src[r - S_real]``, made for the
+   minibatch that draws it (advantage and normalised return reused).
+ * After each step an optional second forward gives the KL(old || new)
+   diagnostic (on by default; the expG recipe turns it off).
+
+The minibatch count is read on the host once per call (one sync); the
+minibatches are then a Python loop. A dataset smaller than one minibatch,
+which the JAX package's fixed-size window cannot slice, trains as one
+shorter minibatch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..env import symmetry
+from ..models.encoding import encode_boards
+from ..ops import optimizer as opt
+from . import losses
+
+
+class Dataset(NamedTuple):
+    """Flat training rows: the S_real real rows, and the lazy augmentation
+    plan (``aug_src``/``aug_tf``) whose rows extend ``valid`` to
+    S_cap = S_real + A. Without a plan, S_cap = S_real."""
+
+    board_before: torch.Tensor  # (S_real, 4, 4) int8
+    action: torch.Tensor  # (S_real,) int
+    action_mask: torch.Tensor  # (S_real, 4) bool
+    advantage: torch.Tensor  # (S_real,) float32
+    G_norm: torch.Tensor  # (S_real,) float32
+    logprobs: torch.Tensor  # (S_real, 4) float32
+    valid: torch.Tensor  # (S_cap,) bool
+    aug_src: torch.Tensor | None = None  # (A,) int
+    aug_tf: torch.Tensor | None = None  # (A,) int
+
+
+class OptimizeStats(NamedTuple):
+    loss: torch.Tensor
+    policy_loss: torch.Tensor
+    entropy_loss: torch.Tensor
+    value_loss: torch.Tensor
+    grad_norm: torch.Tensor
+    entropy: torch.Tensor
+    kl_total: torch.Tensor
+    kl_average: torch.Tensor
+    kl_max: torch.Tensor
+    num_batches: torch.Tensor
+
+
+def _minibatch(ds: Dataset, rows: torch.Tensor) -> dict:
+    """The rows' fields; virtual rows made from their source rows."""
+    fields = dict(board=ds.board_before, action=ds.action, mask=ds.action_mask,
+                  advantage=ds.advantage, rtg=ds.G_norm, logprobs=ds.logprobs)
+    if ds.aug_src is None:
+        return {k: v[rows] for k, v in fields.items()}
+    s_real, a = ds.board_before.shape[0], ds.aug_src.shape[0]
+    is_aug = rows >= s_real
+    a_idx = torch.clamp(rows - s_real, 0, max(a - 1, 0))
+    src = torch.where(is_aug, ds.aug_src[a_idx], rows)
+    tf = torch.where(is_aug, ds.aug_tf[a_idx], symmetry.IDENTITY)
+    raw = {k: v[src] for k, v in fields.items()}
+    return dict(raw,
+                board=symmetry.transform_board(raw["board"], tf),
+                action=symmetry.transform_action(raw["action"], tf),
+                mask=symmetry.transform_action_vector(raw["mask"], tf),
+                logprobs=symmetry.transform_action_vector(raw["logprobs"], tf))
+
+
+def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
+                     batch_size: int, epochs: int, kl_diagnostic: bool = True):
+    """``optimize(opt_state, dataset, beta, critic_strength, schedule_mult, *,
+    perm_generator, dropout_generator, perm_draws=None) -> OptimizeStats``,
+    training ``model`` (its parameters in place, in train mode) and
+    ``opt_state``.
+
+    ``perm_draws`` (epochs, S_cap) replaces the epochs' uniform draws, so a
+    test can replay another shuffle; ``dropout_generator`` draws the dropout
+    masks (unused at dropout 0)."""
+    params = dict(model.named_parameters())
+    names = list(params)
+
+    def optimize(opt_state, dataset: Dataset, beta, critic_strength,
+                 schedule_mult, *, perm_generator=None, dropout_generator=None,
+                 perm_draws=None) -> OptimizeStats:
+        device = dataset.valid.device
+        s_cap = dataset.valid.shape[0]
+        s = int(dataset.valid.sum())  # the one host sync of the learner
+        nb = max(-(-s // batch_size), 0)
+        zero = torch.zeros((), device=device)
+        st = dict(loss=zero, policy=zero, ent_loss=zero, value=zero, gnorm=zero,
+                  ent=zero, kl_total=zero, kl_avg=zero, kl_max=zero)
+        model.train()
+        for epoch in range(epochs):
+            rnd = (perm_draws[epoch] if perm_draws is not None
+                   else torch.rand(s_cap, generator=perm_generator, device=device))
+            perm = torch.argsort(torch.where(dataset.valid, rnd, 2.0), stable=True)
+            for mb in range(nb):
+                logical_start = mb * batch_size
+                start = min(max(logical_start, 0), max(s_cap - batch_size, 0))
+                rows = perm[start:start + batch_size]
+                batch = _minibatch(dataset, rows)
+                idx = torch.arange(start, start + rows.shape[0], device=device)
+                weights = ((idx >= logical_start) & (idx < s)).to(torch.float32)
+                inputs = encode_boards(batch["board"].to(torch.int32))
+                logits, values = model(inputs, dropout_generator)
+                loss, lstats = losses.ppo_loss(
+                    logits, values, batch["action"], batch["mask"],
+                    batch["advantage"], batch["rtg"], batch["logprobs"], weights,
+                    kl_strength=beta, critic_strength=critic_strength)
+                grads = torch.autograd.grad(loss, [params[n] for n in names])
+                gnorm = opt.update_(params, dict(zip(names, grads)), opt_state,
+                                    labels, schedule_mult, opt_config)
+                if kl_diagnostic:
+                    with torch.no_grad():
+                        new_logits, _ = model(inputs, dropout_generator)
+                        kl_sum, kl_mean, kl_max = losses.kl_old_new(
+                            logits.detach(), new_logits, batch["mask"], weights)
+                    st["kl_total"] = st["kl_total"] + kl_sum
+                    st["kl_avg"] = st["kl_avg"] + kl_mean
+                    st["kl_max"] = torch.maximum(st["kl_max"], kl_max)
+                st["loss"] = st["loss"] + lstats.loss
+                st["policy"] = st["policy"] + lstats.policy_loss
+                st["ent_loss"] = st["ent_loss"] + lstats.entropy_loss
+                st["value"] = st["value"] + lstats.value_loss
+                st["gnorm"] = st["gnorm"] + gnorm
+                st["ent"] = st["ent"] + lstats.entropy
+        model.eval()
+        total = float(max(nb * epochs, 1))
+        return OptimizeStats(
+            loss=st["loss"] / total, policy_loss=st["policy"] / total,
+            entropy_loss=st["ent_loss"] / total, value_loss=st["value"] / total,
+            grad_norm=st["gnorm"] / total, entropy=st["ent"] / total,
+            kl_total=st["kl_total"] / total, kl_average=st["kl_avg"] / total,
+            kl_max=st["kl_max"], num_batches=torch.full((), total, device=device))
+
+    return optimize

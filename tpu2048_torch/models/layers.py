@@ -8,25 +8,26 @@ parameter tree's key paths joined with dots.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .initializers import layer_norm_init, linear_init
 
 LN_EPS = 1e-5  # torch LayerNorm default, as in the JAX package
 
 
 class Linear(nn.Module):
     """``y = x @ w.T (+ b)`` with ``w`` of shape (out, in). Initialised as
-    the reference initialises a Linear: kaiming-uniform (relu) weight, zero
-    bias."""
+    the reference initialises a Linear (``initializers.linear_init``):
+    kaiming-uniform (relu) weight from ``generator``, zero bias."""
 
-    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        bound = math.sqrt(6.0 / in_dim)
-        self.w = nn.Parameter(torch.empty(out_dim, in_dim).uniform_(-bound, bound))
-        self.b = nn.Parameter(torch.zeros(out_dim)) if bias else None
+        p = linear_init(out_dim, in_dim, bias, generator)
+        self.w = nn.Parameter(p["w"])
+        self.b = nn.Parameter(p["b"]) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.w, self.b)
@@ -38,8 +39,9 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
         self.eps = eps
-        self.g = nn.Parameter(torch.ones(dim))
-        self.b = nn.Parameter(torch.zeros(dim))
+        p = layer_norm_init(dim)
+        self.g = nn.Parameter(p["g"])
+        self.b = nn.Parameter(p["b"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, (x.shape[-1],), self.g, self.b, self.eps)

@@ -1,11 +1,15 @@
-"""Reader for the JAX package's checkpoints, and the weight carrier.
+"""Checkpoints in the JAX package's format, and the weight carrier.
 
-Counterpart of the reading half of ``tpu2048/train/checkpoint.py``. A
-checkpoint is ``<name>.npz`` (plus a human-readable ``<name>.json`` mirror of
-its manifest). Format v2 stores every leaf under its JAX key path, such as
+Counterpart of ``tpu2048/train/checkpoint.py``. A checkpoint is
+``<name>.npz`` (plus a human-readable ``<name>.json`` mirror of its
+manifest). Format v2 stores every leaf under its JAX key path, such as
 ``['params']['blocks'][0]['lin']['w']``, and embeds the manifest under
 ``__manifest__``. Round-1 files (format v1) store the leaves as ``leaf_<i>``
-in the JAX tree's flatten order.
+in the JAX tree's flatten order; they are read, never written.
+
+Writes are crash-atomic: the ``.npz`` goes to a temporary file that
+``os.replace`` commits, and the manifest rides inside it, so an interrupted
+save leaves the old checkpoint or the new one, never a truncated file.
 
 The port's parameter names are those key paths joined with dots
 (``blocks.0.lin.w``), so carrying weights across is a renaming:
@@ -15,6 +19,7 @@ The port's parameter names are those key paths joined with dots
 from __future__ import annotations
 
 import json
+import os
 import re
 import zipfile
 import zlib
@@ -23,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+FORMAT_VERSION = 2
 _MANIFEST_KEY = "__manifest__"
 _CORRUPTION_ERRORS = (zipfile.BadZipFile, zlib.error, EOFError, OSError)
 _KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
@@ -145,3 +151,50 @@ def state_dict_from_arrays(arrays: dict, names, source) -> dict:
             f"checkpoint {source} does not match the model: missing "
             f"{missing[:5]}, unexpected {extra[:5]}")
     return sd
+
+
+def key_path(name: str) -> str:
+    """A dotted parameter name as its JAX key path relative to the params
+    tree: ``blocks.0.lin.w`` -> ``['blocks'][0]['lin']['w']``."""
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']" for p in name.split("."))
+
+
+def save_pytree(leaves: dict, path, *, manifest: dict | None = None) -> None:
+    """Save ``leaves`` ({JAX key path: array}) as one ``.npz``, the manifest
+    embedded as JSON under ``__manifest__``; crash-atomic (a temporary file
+    committed with ``os.replace``)."""
+    path = Path(path)
+    arrays = {k: np.asarray(v) for k, v in leaves.items()}
+    if manifest is not None:
+        arrays[_MANIFEST_KEY] = np.array(json.dumps(manifest))
+    tmp = path.with_name(path.stem + ".tmp.npz")
+    try:
+        np.savez_compressed(tmp, **arrays)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def save_checkpoint(ckpt_dir, name: str, *, leaves: dict, manifest: dict) -> Path:
+    """Write ``<name>.npz`` (format v2, manifest embedded) into ``ckpt_dir``,
+    then its ``<name>.json`` mirror, each atomically."""
+    d = Path(ckpt_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    manifest = dict(manifest, format_version=FORMAT_VERSION)
+    save_pytree(leaves, d / f"{name}.npz", manifest=manifest)
+    tmp = d / f"{name}.tmp.json"
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=2)
+    os.replace(tmp, d / f"{name}.json")
+    return d / f"{name}.npz"
+
+
+def load_checkpoint(ckpt_dir, name: str) -> tuple:
+    """(arrays keyed by JAX key path, manifest) of ``<name>.npz``: the
+    embedded manifest, else the ``.json`` mirror of an older file."""
+    d = Path(ckpt_dir)
+    arrays, manifest = read_npz(d / f"{name}.npz")
+    if manifest is None:
+        with open(d / f"{name}.json") as f:
+            manifest = json.load(f)
+    return arrays, manifest

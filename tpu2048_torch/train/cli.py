@@ -1,15 +1,166 @@
-"""CLI of the port: ``evaluate`` (the one subcommand ported so far).
+"""CLI of the port: ``train`` (the packed MLP trainer) and ``evaluate``.
 
+    python -m tpu2048_torch.train.cli train --packed --lanes 512 \
+        --horizon 256 --batch-size 4096 ... --no-packed-capture \
+        [--resume] [--device cuda|cpu]
     python -m tpu2048_torch.train.cli evaluate <checkpoint dir> --games N \
         [--greedy] [--seed S] [--env-seed S] [--device cuda|cpu] \
         [--search [--search-depth 1|2|3] [--search-prune K] [--search-bf16]]
 
-Flags as in ``tpu2048/train/cli.py``'s ``evaluate``, plus ``--device``.
+Flags as in ``tpu2048/train/cli.py`` (same names and defaults), plus
+``--device``. A ``train`` flag whose feature is not ported yet raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
 import argparse
+
+
+def _add_train_flags(p: argparse.ArgumentParser) -> None:
+    add = p.add_argument
+    add("--steps", "-s", type=int, default=1000, help="Number of training steps")
+    add("--model", "-m", dest="model_path", default=None,
+        help="Resume training from a train-state checkpoint directory")
+    add("--lr", dest="learning_rate", type=float, default=0.001)
+    add("--gamma", type=float, default=0.99, help="Discount factor")
+    add("--entropy", dest="entropy_strength", type=float, default=0.1)
+    add("--critic", dest="critic_strength", type=float, default=1.0)
+    add("--epsilon", type=float, default=1.0, help="(unused, kept for parity)")
+    add("--momentum", type=float, default=0.99, help="(unused, kept for parity)")
+    add("--episodes", dest="num_episodes", type=int, default=1)
+    add("--batch-size", dest="batch_size", type=int, default=1)
+    add("--epochs", dest="ppo_epochs", type=int, default=1)
+    add("--workers", "-w", type=int, default=1,
+        help="(unused: rollouts are batched on the device)")
+    add("--max-steps", dest="max_steps", type=int, default=None)
+    add("--hidden", "-H", dest="hidden_size", type=int, default=64)
+    add("--num-layers", "-l", dest="num_layers", type=int, default=2)
+    add("--model-type", "-t", dest="model_type", default="mlp")
+    add("--num-heads", dest="num_heads", type=int, default=4)
+    add("--num-loops", dest="num_loops", type=int, default=4)
+    add("--truncated-loops", dest="num_truncated_loops", type=int, default=1)
+    add("--print-freq", "-p", dest="print_frequency", type=int, default=10)
+    add("--show-last-steps", dest="show_last_steps", type=int, default=0)
+    add("--points", dest="points_weight", type=float, default=0.0)
+    add("--smoothness", dest="smoothness_weight", type=float, default=0.0)
+    add("--tile-bonus", dest="max_tile_weight", type=float, default=0.0)
+    add("--corner", dest="corner_weight", type=float, default=0.0)
+    add("--adjacency", dest="adjacency_weight", type=float, default=0.0)
+    add("--chain", dest="chain_weight", type=float, default=0.0)
+    add("--mono", dest="monotonicity_weight", type=float, default=0.0)
+    add("--warmup-steps", dest="warmup_steps", type=int, default=200)
+    add("--emptiness", dest="emptiness_weight", type=float, default=0.0)
+    add("--topo", dest="topological_weight", type=float, default=0.0)
+    add("--win-bonus", dest="win_bonus", type=float, default=0.0)
+    add("--gpu", action="store_true",
+        help="(accepted for parity; the device is --device)")
+    add("--viz-dir", dest="viz_dir", default=None)
+    add("--rtg-beta", dest="rtg_beta", type=float, default=0.9)
+    add("--log-dir", dest="log_dir", default=None)
+    add("--wandb", dest="use_wandb", action="store_true")
+    add("--wandb-project", dest="wandb_project", default="2048-rl")
+    add("--wandb-run", dest="wandb_run_name", default=None)
+    add("--eval-freq", dest="eval_freq", type=int, default=None)
+    add("--eval-games", dest="eval_games", type=int, default=100)
+    add("--critic-lr", dest="critic_lr", type=float, default=0.001)
+    add("--decouple-critic", dest="decouple_critic", action="store_true")
+    add("--upsample-ratio", dest="upsample_ratio", type=float, default=0.0)
+    add("--export-demo", dest="export_demo", action="store_true")
+    add("--checkpoint-dir", dest="checkpoint_dir", default="checkpoints")
+    add("--beta1", type=float, default=0.9)
+    add("--beta2", type=float, default=0.999)
+    add("--weight-decay", dest="weight_decay", type=float, default=0.01)
+    add("--adaptive-beta", dest="adaptive_beta", action="store_true")
+    add("--target-entropy", dest="target_entropy", type=float, default=0.7)
+    add("--beta-min", dest="beta_min", type=float, default=0.001)
+    add("--beta-max", dest="beta_max", type=float, default=1.0)
+    add("--beta-lr", dest="beta_lr", type=float, default=0.01)
+    add("--seed", type=int, default=0, help="Seed of the run's generators")
+    add("--resume", action="store_true", help="Resume from checkpoint-dir")
+    add("--no-kl-diagnostic", dest="kl_diagnostic", action="store_false",
+        help="Skip the per-minibatch KL(old||new) extra forward")
+    add("--scan-cap", dest="scan_cap", type=int, default=4096,
+        help="Most moves of an eval-in-train game")
+    add("--packed", action="store_true",
+        help="Packed (auto-reset) rollout: persistent lanes advance a fixed "
+             "number of steps per train step, finished games reset in place "
+             "and episodes cut at the chunk boundary are value-bootstrapped "
+             "(the one trainer ported; a run without it raises)")
+    add("--lanes", type=int, default=0,
+        help="Packed mode: number of persistent env lanes (0 -> --episodes)")
+    add("--horizon", type=int, default=512,
+        help="Packed mode: env steps per lane per train step")
+    add("--no-packed-capture", dest="packed_capture", action="store_false",
+        default=True,
+        help="Packed mode: no best-episode recorder. Required here: the "
+             "recorder (on by default, as in the JAX package) is not yet "
+             "ported")
+    add("--checkpoint-freq", dest="checkpoint_freq", type=int, default=None)
+    add("--mesh-data", dest="mesh_data", type=int, default=1,
+        help="Data-parallel mesh size (> 1 is not yet ported)")
+    add("--dropout", type=float, default=0.1)
+    add("--eval-env-seed", dest="eval_env_seed", type=int, default=12345,
+        help="Base seed of the spawn stream of eval-in-train")
+    add("--eval-fixed-stream", dest="eval_fixed_stream", action="store_true",
+        help="The same eval spawn stream every round instead of one per "
+             "round")
+    add("--no-pipeline", dest="pipeline", action="store_false", default=True,
+        help="Accepted for parity; has no effect here: the host enqueues "
+             "each eager step as it runs it and reads the step's scalars "
+             "once, after all of its work is enqueued")
+    add("--expert-iter", dest="expert_iter", action="store_true",
+        help="Expert iteration (not yet ported)")
+    add("--expert-depth", dest="expert_depth", type=int, default=1, choices=(1, 2))
+    add("--expert-mix", dest="expert_mix", type=float, default=0.5)
+    add("--expert-tau", dest="expert_tau", type=float, default=0.02)
+    add("--no-expert-sharp", dest="expert_sharp", action="store_false", default=True)
+    add("--expert-src", dest="expert_src", default=None)
+    add("--expert-bf16", dest="expert_bf16", action="store_true")
+    add("--anchor-kl", dest="anchor_kl", type=float, default=0.0,
+        help="KL trust region against the run-start policy (> 0 is not yet "
+             "ported)")
+    add("--coordinator-address", dest="coordinator_address", default=None,
+        help="Multi-host training (not yet ported)")
+    add("--num-processes", dest="num_processes", type=int, default=None,
+        help="Multi-host training (> 1 is not yet ported)")
+    add("--process-id", dest="process_id", type=int, default=None)
+    add("--platform", default=None,
+        help="The JAX package's platform switch; the port's is --device")
+    add("--device", default="cuda",
+        help="torch device (default cuda; cpu runs the plain merge instead "
+             "of the CUDA kernel)")
+
+
+def config_from_args(args):
+    """The ``TrainConfig`` of parsed ``train`` arguments; raises
+    ``NotImplementedError`` for the CLI's own unported flags (the config's
+    are checked by ``train``)."""
+    if args.num_processes and args.num_processes > 1:
+        raise NotImplementedError("--num-processes > 1 (multi-host training): "
+                                  "not yet ported (ROADMAP.md)")
+    if args.platform:
+        raise NotImplementedError(f"--platform {args.platform}: not ported; the "
+                                  "port picks its device with --device")
+    from .loop import TrainConfig
+
+    field_names = set(TrainConfig.__dataclass_fields__)
+    kwargs = {k: v for k, v in vars(args).items() if k in field_names}
+    if args.model_path:
+        kwargs["resume"] = True
+        kwargs["checkpoint_dir"] = args.model_path
+    return TrainConfig(**kwargs)
+
+
+def train_config(argv: list):
+    """The ``TrainConfig`` that ``train`` with the flags ``argv`` runs."""
+    return config_from_args(build_parser().parse_args(["train", *argv]))
+
+
+def cmd_train(args) -> None:
+    from .loop import train
+
+    train(config_from_args(args))
 
 
 def cmd_evaluate(args) -> None:
@@ -29,11 +180,15 @@ def cmd_evaluate(args) -> None:
                         search_bf16=args.search_bf16, device=args.device)
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="tpu2048_torch",
-        description="Evaluate 2048 agents with the PyTorch/CUDA port")
+        description="Train and evaluate 2048 agents with the PyTorch/CUDA port")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p_train = sub.add_parser("train", help="Train an agent")
+    _add_train_flags(p_train)
+    p_train.set_defaults(fn=cmd_train)
 
     p_eval = sub.add_parser("evaluate", help="Evaluate a trained agent")
     p_eval.add_argument("model_path", help="Path to checkpoint directory")
@@ -69,8 +224,11 @@ def main(argv=None) -> None:
                              "bf16-rounded inputs and weights, float32 "
                              "arithmetic; flips only near-tie action choices)")
     p_eval.set_defaults(fn=cmd_evaluate)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 
