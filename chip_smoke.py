@@ -37,33 +37,52 @@ raises and the run exits non-zero:
   urm      checkpoints_urm_r5 on the card: each block and the whole forward
            on 256 boards against the CPU, then a greedy run_eval of 256
            games with an average above a floor
-  train    a fresh run of the expG recipe (MLP H=384x3, 512 lanes x 256
-           steps, batch 4096, Muon+AdamW, adaptive entropy), 3 steps: step 1
-           (warmup multiplier 0) leaves every parameter bit-identical and
-           steps 2-3 change them; every scalar finite; 131,072 env steps and
-           ceil(S/4096) minibatches a step; the first policy uniform over the
-           legal moves; 512 merge launches a step. Then one learner
-           minibatch on the step-1 chunk, on the card and on a CPU copy
-           (same parameters, optimizer state, plan and shuffle): loss and
-           gradient norm to LEARNER_RTOL, new parameters to LEARNER_ATOL
+  train    a fresh run of scripts/train_expG_packed_ppo.sh (MLP H=384x3,
+           512 lanes x 256 steps, batch 4096, Muon+AdamW, adaptive entropy,
+           best-episode capture, viz export), 3 steps printing every step:
+           step 1 (warmup multiplier 0) leaves every parameter bit-identical
+           and steps 2-3 change them; every scalar finite; 131,072 env steps
+           and ceil(S/4096) minibatches a step; the first policy uniform over
+           the legal moves; 512 rollout merge launches a step plus the
+           episode fetches'; a breakdown printed and viz JSON with the
+           committed file's keys. Then one learner minibatch on the step-1
+           chunk, on the card and on a CPU copy (same parameters, optimizer
+           state, plan and shuffle): loss and gradient norm to LEARNER_RTOL,
+           new parameters to LEARNER_ATOL; the step-1 recorder against its
+           CPU replay from the same records, bit for bit; the recorded
+           episode replayed through the plain engine
   train_resume  a copy of checkpoints_expG's train_state and env_carry
            (JAX-written, step 19,999) resumed for 2 steps of the same
-           recipe with an eval of 32 sampled games after each: it starts at
-           step 20000 on the 512 carried boards, its completed episodes and
-           its eval average clear floors fixed before the first run, and
-           its step-20001 train_state reads back
+           recipe (its eval of 128 sampled games at step 20000): it starts
+           on the 512 carried boards, its completed episodes and its eval
+           clear floors fixed before the first run, its step-20001
+           train_state reads back, the JAX run's recorded best episode is
+           restored and kept in the env_carry it writes, and replays
+           through the plain engine
+  train_urm  a copy of checkpoints_urm_r5 (the URM, step 449, 4,096 lanes)
+           resumed for 2 steps of scripts/train_urm_long.sh with one eval
+           of 32 sampled games: completed episodes and the eval above
+           floors, the step-450 train_state read back, the recorded episode
+           kept, a URM learner minibatch card == CPU
+  train_exact  a copy of checkpoints_expA's train_state (exact episodes,
+           step 19,999) resumed for 2 steps of scripts/train_expA2.sh (512
+           games a step, cap 2048): the batch average and the eval of 256
+           games above floors, env_steps the sum of the games' moves, the
+           trips each step ran
   kernels  one JSON line per the port's kernels: check, launches (by
            phase), times (at the served batch, and per timed N with the
            launch floor and the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
-after the train_resume phase: they count the main path only. The last line is
+after the train_exact phase: they count the main path only. The last line is
 {"ok": true, "device": {...}}. Imports torch, numpy, the standard library and
 the port; never JAX and never the tpu2048 package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import shutil
@@ -77,10 +96,10 @@ import torch
 
 from tpu2048_torch.algo import advantage as A
 from tpu2048_torch.algo import augment as AUG
+from tpu2048_torch.algo import capture
 from tpu2048_torch.algo import update as U
 from tpu2048_torch.env import engine
 from tpu2048_torch.models.encoding import encode_boards
-from tpu2048_torch.models.mlp import param_labels
 from tpu2048_torch.ops import merge
 from tpu2048_torch.ops import optimizer as opt
 from tpu2048_torch.serve import PolicyService
@@ -125,8 +144,10 @@ URM_MIN_AVG = 8000
 # JAX package: 2e-6 per block grows to 5e-5 in the logits), hence 1e-4.
 URM_BLOCK_TOL = 1e-5
 URM_FORWARD_TOL = 1e-4
-# The expG recipe (scripts/train_expG_packed_ppo.sh) as the port runs it:
-# no viz export, no best-episode capture (neither is ported).
+# The recipes of scripts/ as the smoke runs them: each script's flags but
+# for --steps, the directories, --print-freq and --resume, which each phase
+# adds (and, for the URM, the eval cadence and size its phase states).
+# scripts/train_expG_packed_ppo.sh: packed, best-episode capture on.
 TRAIN_RECIPE = [
     "--packed", "--lanes", "512", "--horizon", "256", "--batch-size", "4096",
     "--lr", "1e-3", "--critic-lr", "1e-4", "-H", "384", "--num-layers", "3",
@@ -134,10 +155,38 @@ TRAIN_RECIPE = [
     "--target-entropy", "0.25", "--beta-min", "0.001", "--beta-max", "0.05",
     "--beta-lr", "0.005", "--points", "0.10", "--mono", "1.0", "--critic", "0.2",
     "--rtg-beta", "0.99", "--warmup-steps", "20", "--upsample-ratio", "0.25",
-    "-t", "mlp", "--no-kl-diagnostic", "--no-packed-capture", "--print-freq", "1000"]
+    "-t", "mlp", "--no-kl-diagnostic", "--eval-freq", "250", "--eval-games", "128",
+    "--checkpoint-freq", "250", "--scan-cap", "2560"]
+# scripts/train_urm_long.sh: the packed URM, 4,096 lanes x 128.
+URM_RECIPE = [
+    "--packed", "--lanes", "4096", "--horizon", "128", "--batch-size", "8192",
+    "-t", "urm", "-H", "64", "--num-layers", "2", "--num-heads", "4", "--num-loops", "4",
+    "--truncated-loops", "1", "--lr", "1e-3", "--critic-lr", "1e-4", "--gamma", "0.99",
+    "--entropy", "0.02", "--dropout", "0.0", "--points", "0.10", "--mono", "1.0",
+    "--critic", "0.2", "--rtg-beta", "0.99", "--warmup-steps", "10",
+    "--upsample-ratio", "0.25", "--no-kl-diagnostic", "--eval-freq", "20",
+    "--eval-games", "128", "--checkpoint-freq", "10", "--scan-cap", "2560"]
+# scripts/train_expA2.sh: exact episodes, 512 games a step.
+EXACT_RECIPE = [
+    "--episodes", "512", "--batch-size", "4096", "--lr", "5e-4", "--critic-lr", "3e-4",
+    "-H", "196", "--gamma", "0.995", "--entropy", "0.02", "--adaptive-beta",
+    "--target-entropy", "0.25", "--beta-min", "0.001", "--beta-max", "0.05",
+    "--beta-lr", "0.005", "--points", "0.10", "--mono", "1.0", "--critic", "0.2",
+    "--rtg-beta", "0.99", "--warmup-steps", "10", "--upsample-ratio", "0.25", "-t", "mlp",
+    "--no-kl-diagnostic", "--eval-freq", "100", "--eval-games", "256",
+    "--checkpoint-freq", "100", "--scan-cap", "2048"]
 TRAIN_STEPS = 3
 ENV_STEPS_PER_STEP = 512 * 256
 MERGES_PER_STEP = 2 * 256  # all_moves of the boards, then of the next boards
+# The keys of the committed viz_data_expG/step_000000.json (top level, a
+# move, its rewards), held here because the smoke also runs from copies of
+# the repository without its data directories; tests/test_torch_printing.py
+# holds these to the file.
+VIZ_KEYS = (("step", "score", "total_steps", "moves"),
+            ("step", "state_before", "action", "state_after", "points_earned", "rewards",
+             "entropy", "advantage"),
+            ("points", "smoothness", "tile_bonus", "corner", "adjacency", "chain",
+             "monotonicity", "topological", "emptiness"))
 # One learner minibatch, card against CPU: f32 GEMMs summed in another order
 # and bf16 Newton-Schulz products rounded on other units.
 LEARNER_ROWS, LEARNER_SLOTS = 3072, 512  # + 2 x 512 planned rows: one minibatch
@@ -145,12 +194,31 @@ LEARNER_RTOL = 1e-4
 LEARNER_ATOL = 1e-4
 RESUME_SOURCE = ROOT / "checkpoints_expG"  # step 19,999 of the JAX run
 RESUME_STEPS = 20002
-RESUME_EVAL_GAMES = 32
 # Floors fixed before the first card run. The JAX run's EMA of the completed
 # episodes' average at step 19,999 is 22,716 (TPU, train_state.json), and
 # its lr is about 0 this near the end of the cosine schedule.
 RESUME_MIN_EPISODE_AVG = 15000
 RESUME_MIN_EVAL_AVG = 12000
+URM_SOURCE = ROOT / "checkpoints_urm_r5"  # step 449 of the JAX run
+URM_STEPS = 452
+URM_EVAL = ["--eval-freq", "10", "--eval-games", "32"]  # one eval, at step 450
+# Floors fixed before the first card run of this phase. The JAX run's last
+# five evals: 6,897-8,558 at n=128; its EMA of completed episodes 2,091
+# (TPU, train_state.json; an EMA of decay 0.001 over 450 steps that started
+# at 0 and at the first policy's scores).
+URM_MIN_EPISODE_AVG = 3500
+URM_MIN_EVAL_AVG = 3500
+# The URM learner check on 2,048 rows and 2 x 512 planned ones: fewer than
+# the recipe's batch of 8,192, so one shorter minibatch, which bounds the
+# CPU's share of the phase.
+URM_LEARNER_ROWS, URM_LEARNER_SLOTS = 2048, 512
+EXACT_SOURCE = ROOT / "checkpoints_expA"  # step 19,999 of the JAX run
+EXACT_STEPS = 20002
+# Floors fixed before the first card run of this phase. The JAX run's best
+# eval: 8,848 at n=256; its EMA of the batch average 8,272 (TPU,
+# train_state.json).
+EXACT_MIN_BATCH_AVG = 5000
+EXACT_MIN_EVAL_AVG = 4500
 
 
 def phase(name: str, t0: float, text: str) -> None:
@@ -347,11 +415,12 @@ def urm_phase(by_phase: dict, device="cuda") -> None:
           f"{by_phase['urm']}")
 
 
-def learner_card_vs_cpu(cfg, state_dict: dict, opt_state, traj) -> str:
-    """One learner minibatch of LEARNER_ROWS real rows of ``traj`` and a plan
-    of LEARNER_SLOTS slots, schedule multiplier 1, on the card and on a CPU
-    copy from the same parameters, optimizer state, plan and shuffle;
-    raises beyond LEARNER_RTOL / LEARNER_ATOL."""
+def learner_card_vs_cpu(cfg, state_dict: dict, opt_state, traj, n_rows: int = LEARNER_ROWS,
+                        n_slots: int = LEARNER_SLOTS) -> str:
+    """One learner minibatch of ``n_rows`` real rows of the packed ``traj``
+    and a plan of ``n_slots`` slots, schedule multiplier 1, on the card and
+    on a CPU copy of ``cfg``'s model from the same parameters, optimizer
+    state, plan and shuffle; raises beyond LEARNER_RTOL / LEARNER_ATOL."""
     device = traj.valid.device
     adv = A.compute_packed(traj.points, traj.mono_before, traj.mono_after,
                            traj.empt_before, traj.empt_after, traj.value_pred,
@@ -360,25 +429,24 @@ def learner_card_vs_cpu(cfg, state_dict: dict, opt_state, traj) -> str:
                            cfg.rtg_beta, 1)
 
     def rows(x):
-        return x.reshape((-1,) + x.shape[2:])[:LEARNER_ROWS].cpu()
+        return x.reshape((-1,) + x.shape[2:])[:n_rows].cpu()
 
     gen = torch.Generator().manual_seed(7)
-    plan = AUG.plan(gen, LEARNER_SLOTS, torch.tensor(LEARNER_SLOTS),
-                    torch.ones(LEARNER_ROWS, dtype=torch.bool))
+    plan = AUG.plan(gen, n_slots, torch.tensor(n_slots), torch.ones(n_rows, dtype=torch.bool))
     ds = U.Dataset(board_before=rows(traj.board_before), action=rows(traj.action).long(),
                    action_mask=rows(traj.action_mask), advantage=rows(adv["advantage"]),
                    G_norm=rows(adv["G_norm"]), logprobs=rows(traj.logprobs),
-                   valid=torch.cat([torch.ones(LEARNER_ROWS, dtype=torch.bool), plan.valid]),
+                   valid=torch.cat([torch.ones(n_rows, dtype=torch.bool), plan.valid]),
                    aug_src=plan.src, aug_tf=plan.transform)
     perm = torch.rand(1, ds.valid.shape[0], generator=gen)
 
     def run(dev):
-        _, model, _ = loop.build_model(cfg)
+        _, model, labels = loop.build_model(cfg)
         model.load_state_dict(state_dict)
         model.to(dev).eval()
         st = opt.OptState(*({k: v.to(dev, copy=True) for k, v in part.items()} for part in
                             (opt_state.momentum, opt_state.m, opt_state.v)), opt_state.step)
-        fn = U.make_optimize_fn(model, param_labels(model), opt.OptimizerConfig(
+        fn = U.make_optimize_fn(model, labels, opt.OptimizerConfig(
             learning_rate=cfg.learning_rate, critic_lr=cfg.critic_lr), cfg.batch_size, 1,
             kl_diagnostic=False)
         stats = fn(st, U.Dataset(*(None if x is None else x.to(dev) for x in ds)),
@@ -400,43 +468,172 @@ def learner_card_vs_cpu(cfg, state_dict: dict, opt_state, traj) -> str:
             raise AssertionError(f"learner {n}: card vs CPU max |diff| {d} > {LEARNER_ATOL}")
         err = max(err, d)
     moved = max(float((cpu_p[n] - state_dict[n]).abs().max()) for n in cpu_p)
-    return (f"learner minibatch card == CPU: loss {float(card.loss):.7g} vs "
-            f"{float(cpu.loss):.7g}, grad norm {float(card.grad_norm):.7g} vs "
-            f"{float(cpu.grad_norm):.7g} (rtol {LEARNER_RTOL}); params max |diff| "
-            f"{err:.3g} (atol {LEARNER_ATOL}; largest move of a weight {moved:.3g})")
+    return (f"learner minibatch of {n_rows + 2 * n_slots} rows card == CPU: loss "
+            f"{float(card.loss):.7g} vs {float(cpu.loss):.7g}, grad norm "
+            f"{float(card.grad_norm):.7g} vs {float(cpu.grad_norm):.7g} (rtol "
+            f"{LEARNER_RTOL}); params max |diff| {err:.3g} (atol {LEARNER_ATOL}; largest "
+            f"move of a weight {moved:.3g})")
+
+
+def clone_to_cpu(x):
+    """A CPU copy of a tensor, or of each tensor field of a NamedTuple (the
+    recorder's lane buffers are written in place by the next step)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return type(x)(*(clone_to_cpu(v) if isinstance(v, torch.Tensor) else v for v in x))
+
+
+def recorder_card_vs_cpu(traj, carry_in, rec_before, rec_card) -> str:
+    """The chunk's recorder replayed on the CPU from ``rec_before`` (CPU)
+    with the card chunk's own records and starting carry: every field
+    bit-equal to ``rec_card`` (the card's recorder after the chunk, on the
+    CPU)."""
+    rec = rec_before
+    ep_points, ep_moves = carry_in.ep_points.cpu(), carry_in.ep_moves.cpu()
+    for t in range(traj.steps_executed):
+        points, done = traj.points[t].cpu(), traj.done_here[t].cpu()
+        rec = capture.record_step(
+            rec, ep_moves=ep_moves, board_before=traj.board_before[t].cpu(),
+            board_after=traj.board_after[t].cpu(), action=traj.action[t].cpu(),
+            points=points, entropy=traj.entropy[t].cpu(), done=done,
+            ep_points_new=ep_points + points, ep_moves_new=ep_moves + 1)
+        ep_points = torch.where(done, 0, ep_points + points)
+        ep_moves = torch.where(done, 0, ep_moves + 1)
+    for name in capture.EpisodeRecorder._fields:
+        if not torch.equal(getattr(rec, name), getattr(rec_card, name)):
+            raise AssertionError(f"recorder {name}: card differs from the CPU replay")
+    return (f"recorder card == CPU replay over {traj.steps_executed} trips, every field "
+            f"bit-equal (best score {int(rec.best_score)}, {int(rec.best_len)} moves)")
+
+
+def replay_recorded(rec) -> str:
+    """The recorder's committed episode replayed move by move through the
+    plain engine on the CPU: each move's points and its board after the
+    merge, which must equal the recorded next board but for the one spawned
+    tile (a 2 or 4 on an empty cell); the boards chain from move to move;
+    the last board has no legal move; the points sum to the score. An
+    episode longer than the recorder's cap keeps its first cap - 1 moves and
+    its last move: the chain breaks before the last slot, and the stored
+    points sum to less than the score."""
+    n, true_len = int(rec.best_len), int(rec.best_true_len)
+    if n == 0:
+        raise AssertionError("the recorder holds no episode")
+    before, after = rec.best_before[:n].cpu().int(), rec.best_after[:n].cpu().int()
+    action, points = rec.best_action[:n].cpu().long(), rec.best_points[:n].cpu()
+    truncated = true_len > n
+    moves = engine.all_moves(before)
+    rows = torch.arange(n)
+    if not torch.equal(moves.scores[action, rows], points):
+        raise AssertionError("recorded points differ from the engine's merge scores")
+    if not moves.legal[action, rows].all():
+        raise AssertionError("the recorded episode plays an illegal move")
+    merged = moves.boards[action, rows]
+    diff = merged != after
+    spawned = diff.sum((1, 2))
+    ok = (spawned == 1) & ((merged == 0) & ((after == 1) | (after == 2)) | ~diff).all((1, 2))
+    if not ok.all():
+        raise AssertionError(f"move {int((~ok).nonzero()[0])}: the board after it is not "
+                             "the merged board plus one spawned tile")
+    chained = n - 2 if truncated else n - 1
+    if not torch.equal(after[:chained], before[1:chained + 1]):
+        raise AssertionError("the recorded boards do not chain from move to move")
+    if engine.all_moves(after[-1:]).legal.any():
+        raise AssertionError("the recorded episode does not end on a board without moves")
+    total = int(points.sum())
+    if total > int(rec.best_score) or (not truncated and total != int(rec.best_score)):
+        raise AssertionError(f"recorded points sum to {total}, score {int(rec.best_score)}")
+    return (f"recorded episode (score {int(rec.best_score)}, {true_len} moves"
+            + (f", {n} stored: truncated, stored points {total}" if truncated else "")
+            + ") replays through the plain engine")
+
+
+def check_printed(text: str, viz_dir: Path) -> str:
+    """A breakdown printed, and viz JSON written with the committed file's
+    keys."""
+    breakdowns = text.count("Reward breakdown:")
+    files = sorted(viz_dir.glob("step_*.json"))
+    if breakdowns == 0 or "Final state:" not in text:
+        raise AssertionError("no episode breakdown was printed")
+    if not files:
+        raise AssertionError(f"no viz JSON in {viz_dir}")
+    for f in files:
+        data = json.loads(f.read_text())
+        keys = (tuple(data), tuple(data["moves"][0]), tuple(data["moves"][0]["rewards"]))
+        if keys != VIZ_KEYS:
+            raise AssertionError(f"{f.name}: keys {keys} are not the committed file's")
+    return (f"{breakdowns} breakdowns printed; {len(files)} viz JSON files with the "
+            "committed file's keys")
+
+
+def logged_evals(log_dir) -> list:
+    """The eval lines of the metric logs in ``log_dir``."""
+    return [json.loads(line) for f in Path(log_dir).glob("*.jsonl")
+            for line in f.read_text().splitlines() if "eval/avg_score" in line]
+
+
+def check_finite(label, scalars: dict) -> None:
+    bad = [k for k, v in scalars.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{label}: non-finite {bad}")
+
+
+def run_quiet(cfg, on_step) -> tuple:
+    """``loop.train(cfg, on_step)`` with its standard output kept: (summary,
+    the text it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = loop.train(cfg, on_step=on_step)
+    return summary, buf.getvalue()
+
+
+def fetch_merges(rec, new_high: bool, printed: bool) -> int:
+    """Merge launches of a step's episode fetches from the recorder: one for
+    the potentials of a new high, and one for them and one for the
+    heuristics at print cadence, once an episode is recorded."""
+    if rec is None or int(rec.best_len) == 0:
+        return 0
+    return int(new_high) + 2 * int(printed)
 
 
 def train_phase(by_phase: dict, device="cuda") -> None:
     """A fresh 3-step run of the expG recipe through the CLI's configuration
-    and the trainer, then the learner card against CPU."""
+    and the trainer, capture and viz on; then the learner and the recorder,
+    card against CPU."""
     t0 = time.perf_counter()
     before = merge.launches
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = cli.train_config(TRAIN_RECIPE + ["--steps", str(TRAIN_STEPS),
-                                               "--checkpoint-dir", tmp, "--device", device])
+        viz = Path(tmp) / "viz"
+        cfg = cli.train_config(TRAIN_RECIPE + [
+            "--steps", str(TRAIN_STEPS), "--checkpoint-dir", tmp, "--viz-dir", str(viz),
+            "--print-freq", "1", "--device", device])
         key = np.array([0, cfg.seed], np.uint32)
         _, init_model, _ = loop.build_model(cfg, loop.make_generator("cpu", *key, loop.INIT))
         init = {n: p.detach().clone() for n, p in init_model.named_parameters()}
-        steps, marks = [], [merge.launches]
+        steps, marks, highest = [], [merge.launches], [0]
 
         def on_step(info):
             sync(device)
             marks.append(merge.launches)
-            rec = dict(step=info["step"], scalars=info["scalars"],
+            sc = info["scalars"]
+            rec = dict(step=info["step"], scalars=sc,
                        rollout_s=info["rollout_s"], learner_s=info["learner_s"],
                        launches=marks[-1] - marks[-2],
+                       fetch_merges=fetch_merges(info["recorder"],
+                                                 sc["batch_max_score"] > highest[0], True),
                        params={n: p.detach().cpu().clone()
                                for n, p in info["model"].named_parameters()})
+            highest[0] = max(highest[0], sc["batch_max_score"])
             if info["step"] == 0:
                 st = info["opt_state"]
                 rec["first"] = (
                     {n: p.detach().cpu().clone() for n, p in info["model"].state_dict().items()},
                     opt.OptState(*({k: v.clone() for k, v in part.items()}
                                    for part in (st.momentum, st.m, st.v)), st.step),
-                    info["traj"])
+                    info["traj"], info["carry_in"], clone_to_cpu(info["recorder"]))
             steps.append(rec)
 
-        summary = loop.train(cfg, on_step=on_step)
+        summary, printed = run_quiet(cfg, on_step)
+        shown = check_printed(printed, viz)
     by_phase["train"] = merge.launches - before
     if [s["step"] for s in steps] != list(range(TRAIN_STEPS)):
         raise AssertionError(f"steps run: {[s['step'] for s in steps]}")
@@ -448,18 +645,17 @@ def train_phase(by_phase: dict, device="cuda") -> None:
             raise AssertionError(f"step {i + 1} changed no parameter")
     for s in steps:
         sc = s["scalars"]
-        bad = [k for k, v in sc.items() if not math.isfinite(v)]
-        if bad:
-            raise AssertionError(f"step {s['step'] + 1}: non-finite {bad}")
+        check_finite(f"step {s['step'] + 1}", sc)
         if sc["env_steps"] != ENV_STEPS_PER_STEP:
             raise AssertionError(f"step {s['step'] + 1}: {sc['env_steps']} env steps")
         rows = sc["samples"] + sc["augmented_samples"]
         if sc["num_batches"] != math.ceil(rows / cfg.batch_size):
             raise AssertionError(f"step {s['step'] + 1}: {sc['num_batches']} minibatches "
                                  f"for {rows} rows")
-        if s["launches"] != MERGES_PER_STEP:
-            raise AssertionError(f"step {s['step'] + 1}: {s['launches']} merge launches")
-    state_dict, opt_state, traj = steps[0]["first"]
+        if s["launches"] != MERGES_PER_STEP + s["fetch_merges"]:
+            raise AssertionError(f"step {s['step'] + 1}: {s['launches']} merge launches, "
+                                 f"expected {MERGES_PER_STEP} + {s['fetch_merges']}")
+    state_dict, opt_state, traj, carry_in, rec_card = steps[0]["first"]
     n_legal = (~traj.action_mask).sum(-1).to(torch.float32)
     uniform = float(n_legal.log().mean())
     rollout_gap = float((traj.entropy - n_legal.log()).abs().max())
@@ -468,34 +664,71 @@ def train_phase(by_phase: dict, device="cuda") -> None:
         raise AssertionError(f"first policy not uniform over legal moves: rollout gap "
                              f"{rollout_gap}, learner entropy {first_entropy} vs {uniform}")
     check = learner_card_vs_cpu(cfg, state_dict, opt_state, traj)
+    rec_check = recorder_card_vs_cpu(traj, carry_in, capture.init_recorder(
+        cfg.packed_lanes, cfg.scan_cap), rec_card)
+    replayed = replay_recorded(summary["recorder"])
     per_step = "; ".join(
         f"step {s['step'] + 1}: rollout {s['rollout_s']:.3f} s, learner {s['learner_s']:.3f} s, "
         f"{ENV_STEPS_PER_STEP / (s['rollout_s'] + s['learner_s']):.0f} env steps/s, "
         f"{s['scalars']['num_batches']:.0f} minibatches, entropy {s['scalars']['entropy']:.4f}, "
-        f"avg completed episode {s['scalars']['batch_avg_score']:.1f}"
+        f"avg completed episode {s['scalars']['batch_avg_score']:.1f}, merge launches "
+        f"{s['launches']} ({s['fetch_merges']} for episode fetches)"
         for s in steps)
-    phase("train", t0, f"expG recipe, {TRAIN_STEPS} fresh steps on the card: step 1 left "
-          f"every parameter bit-identical, steps 2-3 moved them; scalars finite; "
-          f"{ENV_STEPS_PER_STEP} env steps and ceil(S/{cfg.batch_size}) minibatches a step; "
-          f"first policy uniform over legal moves (learner entropy {first_entropy:.5f} vs "
-          f"{uniform:.5f}); {MERGES_PER_STEP} merge launches a step ({by_phase['train']} "
-          f"in all); {per_step}; trained in {summary['elapsed']:.3f} s; {check}")
+    phase("train", t0, f"expG recipe (capture on, viz), {TRAIN_STEPS} fresh steps on the "
+          f"card: step 1 left every parameter bit-identical, steps 2-3 moved them; scalars "
+          f"finite; {ENV_STEPS_PER_STEP} env steps and ceil(S/{cfg.batch_size}) minibatches "
+          f"a step; first policy uniform over legal moves (learner entropy "
+          f"{first_entropy:.5f} vs {uniform:.5f}); {MERGES_PER_STEP} rollout merge launches "
+          f"a step ({by_phase['train']} in all); {per_step}; trained in "
+          f"{summary['elapsed']:.3f} s; {check}; {rec_check}; {replayed}; {shown}")
+
+
+def copy_state(src: Path, dst: str, names=("train_state", "env_carry")) -> None:
+    for name in names:
+        for ext in ("npz", "json"):
+            shutil.copy(src / f"{name}.{ext}", dst)
+
+
+def recorded_best(src: Path) -> dict:
+    with np.load(src / "env_carry.npz") as z:
+        return {k: z[f"['{k}']"] for k in capture.BEST_FIELDS}
+
+
+def check_best_kept(jax_best: dict, port_dir: str, rec) -> str:
+    """The JAX run's recorded episode, restored into the recorder, is kept by
+    the run and by the env_carry it writes (or beaten by a better one)."""
+    saved = recorded_best(Path(port_dir))
+    theirs = int(jax_best["best_score"])
+    for where, best in (("recorder", {k: getattr(rec, k).cpu().numpy()
+                                      for k in capture.BEST_FIELDS}),
+                        ("saved env_carry", saved)):
+        if int(best["best_score"]) < theirs:
+            raise AssertionError(f"{where}: best score {int(best['best_score'])} < the JAX "
+                                 f"run's {theirs}")
+        if int(best["best_score"]) == theirs:
+            for k, v in jax_best.items():
+                if not np.array_equal(best[k], v):
+                    raise AssertionError(f"{where}: {k} differs from the JAX run's")
+    kept = int(saved["best_score"]) == theirs
+    return (f"the JAX run's recorded episode (score {theirs}) "
+            + ("kept by the recorder and the saved env_carry" if kept
+               else f"beaten by one of {int(saved['best_score'])}"))
 
 
 def train_resume_phase(by_phase: dict, device="cuda") -> None:
-    """The JAX run's own step-19,999 state resumed on the card for 2 steps,
-    with eval-in-train after each."""
+    """The JAX run's own step-19,999 state resumed on the card for 2 steps of
+    the verbatim recipe (its eval at step 20000), capture and viz on."""
     t0 = time.perf_counter()
     before = merge.launches
+    jax_best = recorded_best(RESUME_SOURCE)
     with tempfile.TemporaryDirectory() as tmp:
-        for f in ("train_state.npz", "train_state.json", "env_carry.npz", "env_carry.json"):
-            shutil.copy(RESUME_SOURCE / f, tmp)
+        copy_state(RESUME_SOURCE, tmp)
         with np.load(RESUME_SOURCE / "env_carry.npz") as z:
             carried = torch.as_tensor(z["['boards']"])
+        viz = Path(tmp) / "viz"
         cfg = cli.train_config(TRAIN_RECIPE + [
             "--steps", str(RESUME_STEPS), "--resume", "--checkpoint-dir", tmp,
-            "--log-dir", tmp, "--eval-freq", "1", "--eval-games", str(RESUME_EVAL_GAMES),
-            "--device", device])
+            "--log-dir", tmp, "--viz-dir", str(viz), "--print-freq", "1", "--device", device])
         steps = []
 
         def on_step(info):
@@ -509,10 +742,12 @@ def train_resume_phase(by_phase: dict, device="cuda") -> None:
                 params={n: p.detach().cpu().clone()
                         for n, p in info["model"].named_parameters()}))
 
-        summary = loop.train(cfg, on_step=on_step)
+        summary, printed = run_quiet(cfg, on_step)
         by_phase["train_resume"] = merge.launches - before
-        evals = [json.loads(line) for f in Path(tmp).glob("*.jsonl")
-                 for line in f.read_text().splitlines() if "eval/avg_score" in line]
+        shown = check_printed(printed, viz)
+        kept = check_best_kept(jax_best, tmp, summary["recorder"])
+        replayed = replay_recorded(summary["recorder"])
+        evals = logged_evals(tmp)
         _, model, _ = loop.build_model(cfg)
         _, _, _, manifest = loop.load_train_state(tmp, model, "cpu")
         final = {n: p.detach() for n, p in model.named_parameters()}
@@ -520,12 +755,14 @@ def train_resume_phase(by_phase: dict, device="cuda") -> None:
         raise AssertionError(f"resumed steps {[s['step'] for s in steps]}, expected 20000-20001")
     if not torch.equal(steps[0]["first"], carried):
         raise AssertionError("the first chunk did not start from the 512 carried boards")
+    if "Resumed packed env carry" not in printed:
+        raise AssertionError("the env carry was not restored")
     episodes = sum(s["episodes"] for s in steps)
     episode_avg = sum(s["score_sum"] for s in steps) / max(episodes, 1)
     if episodes == 0 or episode_avg <= RESUME_MIN_EPISODE_AVG:
         raise AssertionError(f"{episodes} completed episodes, avg {episode_avg} <= "
                              f"{RESUME_MIN_EPISODE_AVG}")
-    if [e["step"] for e in evals] != [20000, 20001]:
+    if [e["step"] for e in evals] != [20000]:
         raise AssertionError(f"evals at steps {[e['step'] for e in evals]}")
     for e in evals:
         if e["eval/avg_score"] <= RESUME_MIN_EVAL_AVG:
@@ -537,17 +774,165 @@ def train_resume_phase(by_phase: dict, device="cuda") -> None:
         if not torch.equal(p, steps[-1]["params"][n]):
             raise AssertionError(f"the saved step-{RESUME_STEPS - 1} train_state differs at {n}")
     phase("train_resume", t0, f"{RESUME_SOURCE.name} (JAX-written, step 19,999) resumed "
-          f"at step 20000 on its 512 carried boards, {len(steps)} steps: {episodes} "
-          f"completed episodes, avg {episode_avg:.1f} (floor {RESUME_MIN_EPISODE_AVG}); "
-          "sampled evals of " f"{RESUME_EVAL_GAMES} games: "
+          f"at step 20000 on its 512 carried boards, {len(steps)} steps of the verbatim "
+          f"recipe: {episodes} completed episodes, avg {episode_avg:.1f} (floor "
+          f"{RESUME_MIN_EPISODE_AVG}); sampled eval of {cfg.eval_games} games: "
           + ", ".join(f"step {e['step']} avg {e['eval/avg_score']} max "
                       f"{e['eval/max_score']} pct_2048 {e['eval/pct_2048']}" for e in evals)
           + f" (floor {RESUME_MIN_EVAL_AVG}); step-{RESUME_STEPS - 1} train_state read back "
-          f"equal; " + "; ".join(
+          f"equal; {kept}; {replayed}; {shown}; " + "; ".join(
               f"step {s['step']}: rollout {s['rollout_s']:.3f} s, learner "
               f"{s['learner_s']:.3f} s, sched_mult {s['scalars']['sched_mult']:.3g}"
               for s in steps)
           + f"; {summary['elapsed']:.3f} s in all; merge launches {by_phase['train_resume']}")
+
+
+def train_urm_phase(by_phase: dict, device="cuda") -> None:
+    """The JAX run's URM (checkpoints_urm_r5, step 449, 4,096 lanes)
+    resumed on the card for 2 steps of scripts/train_urm_long.sh, with one
+    eval of 32 sampled games; a URM learner minibatch card against CPU."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    jax_best = recorded_best(URM_SOURCE)
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_state(URM_SOURCE, tmp)
+        with np.load(URM_SOURCE / "env_carry.npz") as z:
+            carried = torch.as_tensor(z["['boards']"])
+        viz = Path(tmp) / "viz"
+        cfg = cli.train_config(URM_RECIPE + URM_EVAL + [
+            "--steps", str(URM_STEPS), "--resume", "--checkpoint-dir", tmp, "--log-dir", tmp,
+            "--viz-dir", str(viz), "--print-freq", "1", "--device", device])
+        steps, read_back = [], []
+
+        def on_step(info):
+            traj = info["traj"]
+            done = traj.done_here
+            rec = dict(step=info["step"], first=traj.board_before[0].cpu(),
+                       score_sum=float(traj.ep_score[done].to(torch.float64).sum()),
+                       episodes=int(done.sum()), rollout_s=info["rollout_s"],
+                       learner_s=info["learner_s"], scalars=info["scalars"])
+            if info["step"] == URM_STEPS - 2:
+                # The step's train_state checkpoint (--checkpoint-freq 10),
+                # read back against the live model.
+                _, model, _ = loop.build_model(cfg)
+                _, _, _, manifest = loop.load_train_state(tmp, model, "cpu")
+                read_back.append((manifest["train_step"], all(
+                    torch.equal(p.detach(), q.detach().cpu()) for p, q in
+                    zip(model.parameters(), info["model"].parameters()))))
+                st = info["opt_state"]
+                rec["learner"] = (
+                    {n: p.detach().cpu().clone() for n, p in info["model"].state_dict().items()},
+                    opt.OptState(*({k: v.clone() for k, v in part.items()}
+                                   for part in (st.momentum, st.m, st.v)), st.step), traj)
+            steps.append(rec)
+
+        summary, printed = run_quiet(cfg, on_step)
+        by_phase["train_urm"] = merge.launches - before
+        shown = check_printed(printed, viz)
+        kept = check_best_kept(jax_best, tmp, summary["recorder"])
+        replayed = replay_recorded(summary["recorder"])
+        evals = logged_evals(tmp)
+    if [s["step"] for s in steps] != [URM_STEPS - 2, URM_STEPS - 1]:
+        raise AssertionError(f"resumed steps {[s['step'] for s in steps]}")
+    if not torch.equal(steps[0]["first"], carried):
+        raise AssertionError("the first chunk did not start from the 4096 carried boards")
+    if read_back != [(URM_STEPS - 2, True)]:
+        raise AssertionError(f"step-{URM_STEPS - 2} train_state read back: {read_back}")
+    episodes = sum(s["episodes"] for s in steps)
+    episode_avg = sum(s["score_sum"] for s in steps) / max(episodes, 1)
+    if episodes == 0 or episode_avg <= URM_MIN_EPISODE_AVG:
+        raise AssertionError(f"{episodes} completed episodes, avg {episode_avg} <= "
+                             f"{URM_MIN_EPISODE_AVG}")
+    if [e["step"] for e in evals] != [URM_STEPS - 2]:
+        raise AssertionError(f"evals at steps {[e['step'] for e in evals]}")
+    if evals[0]["eval/avg_score"] <= URM_MIN_EVAL_AVG:
+        raise AssertionError(f"URM eval avg {evals[0]['eval/avg_score']} <= {URM_MIN_EVAL_AVG}")
+    for s in steps:
+        check_finite(f"step {s['step']}", s["scalars"])
+    state_dict, opt_state, traj = steps[0]["learner"]
+    check = learner_card_vs_cpu(cfg, state_dict, opt_state, traj, URM_LEARNER_ROWS,
+                                URM_LEARNER_SLOTS)
+    e = evals[0]
+    phase("train_urm", t0, f"{URM_SOURCE.name} (JAX-written URM H=64x2, 4 loops, step 449) "
+          f"resumed on its 4096 carried boards, 2 steps of scripts/train_urm_long.sh "
+          f"(eval changed to {' '.join(URM_EVAL)}): {episodes} completed episodes, avg "
+          f"{episode_avg:.1f} (floor {URM_MIN_EPISODE_AVG}); sampled eval at step "
+          f"{e['step']}: avg {e['eval/avg_score']}, max {e['eval/max_score']}, pct_2048 "
+          f"{e['eval/pct_2048']} (floor {URM_MIN_EVAL_AVG}); step-{URM_STEPS - 2} train_state "
+          f"read back equal; {kept}; {replayed}; {shown}; " + "; ".join(
+              f"step {s['step']}: rollout {s['rollout_s']:.3f} s, learner "
+              f"{s['learner_s']:.3f} s, {s['scalars']['num_batches']:.0f} minibatches, "
+              f"entropy {s['scalars']['entropy']:.4f}" for s in steps)
+          + f"; {summary['elapsed']:.3f} s in all; {check}; merge launches "
+          f"{by_phase['train_urm']}")
+
+
+def train_exact_phase(by_phase: dict, device="cuda") -> None:
+    """The JAX run's exact-episodes MLP (checkpoints_expA, step 19,999)
+    resumed on the card for 2 steps of scripts/train_expA2.sh."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_state(EXACT_SOURCE, tmp, names=("train_state",))
+        viz = Path(tmp) / "viz"
+        cfg = cli.train_config(EXACT_RECIPE + [
+            "--steps", str(EXACT_STEPS), "--resume", "--checkpoint-dir", tmp, "--log-dir", tmp,
+            "--viz-dir", str(viz), "--print-freq", "1", "--device", device])
+        steps, marks = [], [merge.launches]
+
+        def on_step(info):
+            sync(device)
+            marks.append(merge.launches)
+            traj = info["traj"]
+            steps.append(dict(step=info["step"], trips=traj.steps_executed,
+                              moves=int(traj.num_moves.sum()),
+                              ended=int(traj.ended.sum()), scalars=info["scalars"],
+                              launches=marks[-1] - marks[-2], rollout_s=info["rollout_s"],
+                              learner_s=info["learner_s"]))
+
+        summary, printed = run_quiet(cfg, on_step)
+        by_phase["train_exact"] = merge.launches - before
+        shown = check_printed(printed, viz)
+        evals = logged_evals(tmp)
+        _, model, _ = loop.build_model(cfg)
+        _, _, _, manifest = loop.load_train_state(tmp, model, "cpu")
+    if [s["step"] for s in steps] != [20000, 20001]:
+        raise AssertionError(f"resumed steps {[s['step'] for s in steps]}, expected 20000-20001")
+    for s in steps:
+        sc = s["scalars"]
+        check_finite(f"step {s['step']}", sc)
+        if sc["env_steps"] != s["moves"]:
+            raise AssertionError(f"step {s['step']}: env_steps {sc['env_steps']} != "
+                                 f"{s['moves']} moves")
+        # One merge a trip and one for the fresh boards, one for the
+        # heuristics of the printed episode, and the eval's.
+        if s["launches"] < s["trips"] + 2 or (s["step"] % cfg.eval_freq
+                                              and s["launches"] != s["trips"] + 2):
+            raise AssertionError(f"step {s['step']}: {s['launches']} merge launches for "
+                                 f"{s['trips']} trips")
+        if sc["batch_avg_score"] <= EXACT_MIN_BATCH_AVG:
+            raise AssertionError(f"step {s['step']}: batch average {sc['batch_avg_score']} "
+                                 f"<= {EXACT_MIN_BATCH_AVG}")
+    if [e["step"] for e in evals] != [20000]:
+        raise AssertionError(f"evals at steps {[e['step'] for e in evals]}")
+    if evals[0]["eval/avg_score"] <= EXACT_MIN_EVAL_AVG:
+        raise AssertionError(f"eval avg {evals[0]['eval/avg_score']} <= {EXACT_MIN_EVAL_AVG}")
+    if manifest["train_step"] != EXACT_STEPS - 1:
+        raise AssertionError(f"saved train_state is at step {manifest['train_step']}")
+    e = evals[0]
+    phase("train_exact", t0, f"{EXACT_SOURCE.name} (JAX-written MLP H=196x2, step 19,999) "
+          f"resumed, 2 steps of scripts/train_expA2.sh (exact episodes, "
+          f"{cfg.num_episodes} games, cap {cfg.rollout_cap}): " + "; ".join(
+              f"step {s['step']}: {s['trips']} trips, {s['moves']} moves (== env_steps), "
+              f"{s['ended']} games ended, batch avg {s['scalars']['batch_avg_score']:.1f} "
+              f"max {s['scalars']['batch_max_score']:.0f}, rollout {s['rollout_s']:.3f} s, "
+              f"learner {s['learner_s']:.3f} s, {s['scalars']['num_batches']:.0f} "
+              f"minibatches, merge launches {s['launches']}" for s in steps)
+          + f" (floor {EXACT_MIN_BATCH_AVG}); sampled eval of {cfg.eval_games} games at step "
+          f"{e['step']}: avg {e['eval/avg_score']}, max {e['eval/max_score']}, pct_2048 "
+          f"{e['eval/pct_2048']} (floor {EXACT_MIN_EVAL_AVG}); step-{EXACT_STEPS - 1} "
+          f"train_state saved; {shown}; {summary['elapsed']:.3f} s in all; merge launches "
+          f"{by_phase['train_exact']}")
 
 
 def main() -> None:
@@ -692,6 +1077,8 @@ def main() -> None:
     urm_phase(by_phase)
     train_phase(by_phase)
     train_resume_phase(by_phase)
+    train_urm_phase(by_phase)
+    train_exact_phase(by_phase)
 
     # 13. kernels
     t0 = time.perf_counter()

@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch/CUDA port's main path, on an NVIDIA GPU.
 
     python3 scripts/torch_profile.py [--steps 300] [--out chiprun_out/torch_profile.json]
-        [--merge-baseline OLD/merge4.cu] [--merge-only]
+        [--merge-baseline OLD/merge4.cu] [--merge-only] [--search-only]
+        [--train-only [--train-recipe all|expG|urm|expA2]]
 
 Loads checkpoints_expG (H=384x3) on ``cuda`` and, for the eval step of 256
 greedy games and for a served request of 1 and of 256 boards, sets the host's
@@ -37,16 +38,22 @@ each wrapper replays the kernel, warm and with the library's first launch
 inside the capture.
 ``--merge-only`` skips the eval and serve measurements.
 
-``--train-only`` splits train steps of the expG recipe (MLP H=384x3, 512
-lanes x 256 steps, batch 4096, Muon+AdamW), resumed from checkpoints_expG's
-state, into rollout, advantage and learner: host ms of each in a step run
-without the profiler (each part ended by a synchronize), device ms of each
-in the next step, run under ``torch.profiler`` (the sum of its kernels),
-the rollout's host and device ms per env step (a trip of all 512 lanes),
-and the learner per minibatch: forward+backward, Newton-Schulz and AdamW,
-each replayed alone at the recipe's shapes under the profiler, and the rest
-(the batch gather and augmentation, the loss bookkeeping, the clip, Muon's
-momentum and update) as the difference.
+``--train-only`` splits a train step of each non-expert recipe of
+``scripts/`` (``--train-recipe`` picks one), as chip_smoke.py runs it and
+resumed from the committed state its script trained: expG (packed MLP
+H=384x3, 512 lanes x 256, capture on; checkpoints_expG), urm (packed URM
+H=64x2, 4,096 lanes x 128, capture on; checkpoints_urm_r5) and expA2
+(exact episodes, MLP H=196x2, 512 games to cap 2048; checkpoints_expA).
+Each step is split into rollout, advantage and learner: host ms of each in
+a step run without the profiler (each part ended by a synchronize), device
+ms of each in the next step, run under ``torch.profiler`` (the sum of its
+kernels); the rollout per trip (one step of every lane or game) with its
+merge launches; the recorder alone (the chunk's trips replayed through
+``capture.record_step``), host and device ms per trip and its share of the
+rollout; and the learner per minibatch: forward+backward, Newton-Schulz
+and AdamW, each replayed alone at the recipe's shapes under the profiler,
+and the rest (the batch gather and augmentation, the loss bookkeeping, the
+clip, Muon's momentum and update) as the difference.
 
 The search (``--search-only`` runs it alone) is measured at depth 1 over 256
 games of checkpoints_expG, depth 2 over 32 games of checkpoints_expA (each
@@ -85,6 +92,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke  # noqa: E402
 from tpu2048_torch.algo import advantage as A  # noqa: E402
 from tpu2048_torch.algo import losses  # noqa: E402
 from tpu2048_torch.algo import rollout as R  # noqa: E402
@@ -551,7 +559,13 @@ def merge_timing(baseline) -> list:
     return rows
 
 
-TRAIN_CHECKPOINT = ROOT / "checkpoints_expG"
+# The recipes of scripts/ as chip_smoke.py runs them, each resumed from the
+# committed JAX-written state its script trained.
+TRAIN_PROFILES = {
+    "expG": (chip_smoke.TRAIN_RECIPE, ROOT / "checkpoints_expG"),
+    "urm": (chip_smoke.URM_RECIPE, ROOT / "checkpoints_urm_r5"),
+    "expA2": (chip_smoke.EXACT_RECIPE, ROOT / "checkpoints_expA"),
+}
 TRAIN_STEP = 100  # a step past the warmup: the schedule's multiplier is not 0
 
 
@@ -585,25 +599,27 @@ def timed_host_ms(fn) -> tuple:
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def train_step_profile() -> dict:
-    """One recipe train step, split (see the module docstring)."""
+def train_step_profile(name: str) -> dict:
+    """One train step of recipe ``name``, split (see the module docstring)."""
     import copy
 
+    from tpu2048_torch.algo import capture
     from tpu2048_torch.algo import update as U
     from tpu2048_torch.ops import optimizer as opt
 
-    argv = ["--packed", "--lanes", "512", "--horizon", "256", "--batch-size", "4096",
-            "--lr", "1e-3", "--critic-lr", "1e-4", "-H", "384", "--num-layers", "3",
-            "--gamma", "0.995", "--dropout", "0.0", "--entropy", "0.02",
-            "--adaptive-beta", "--target-entropy", "0.25", "--points", "0.10",
-            "--mono", "1.0", "--critic", "0.2", "--rtg-beta", "0.99",
-            "--warmup-steps", "20", "--upsample-ratio", "0.25", "--no-kl-diagnostic",
-            "--no-packed-capture", "--steps", "20000", "--device", "cuda"]
+    recipe, ckpt = TRAIN_PROFILES[name]
+    steps = json.loads((ckpt / "train_state.json").read_text())["config"]["steps"]
+    argv = recipe + ["--steps", str(steps), "--device", "cuda"]
     cfg = cli.train_config(argv)
     _, model, labels = loop.build_model(cfg)
     model.to("cuda").eval()
-    opt_state, moments, key, _ = loop.load_train_state(TRAIN_CHECKPOINT, model, "cuda")
-    carry = loop.load_env_carry(TRAIN_CHECKPOINT, cfg.lanes, "cuda", MetricLogger())
+    opt_state, moments, key, _ = loop.load_train_state(ckpt, model, "cuda")
+    carry = rec = None
+    if cfg.packed:
+        carry, best = loop.load_env_carry(ckpt, cfg.packed_lanes, cfg.scan_cap, "cuda",
+                                          MetricLogger())
+        rec = capture.mark_resumed(capture.init_recorder(
+            cfg.packed_lanes, cfg.scan_cap, "cuda"), carry.ep_moves)._replace(**best)
     ocfg = opt.OptimizerConfig(learning_rate=cfg.learning_rate, critic_lr=cfg.critic_lr)
     process = loop.make_process_fn(cfg, U.make_optimize_fn(
         model, labels, ocfg, cfg.batch_size, cfg.ppo_epochs, kl_diagnostic=False))
@@ -612,57 +628,98 @@ def train_step_profile() -> dict:
         return {s: loop.make_generator("cuda", *key, step, s)
                 for s in (loop.AUGMENT, loop.PERMUTE, loop.DROPOUT)}
 
-    def rollout(step, carry):
-        return R.rollout_packed(
-            model, carry, cfg.horizon,
-            action_generator=loop.make_generator("cuda", *key, step, loop.ACTION),
-            env_generator=loop.make_generator("cuda", *carry.env_key, step))
+    def rollout(step, carry, rec):
+        """(traj, carry, recorder) of the recipe's rollout at ``step``."""
+        act = loop.make_generator("cuda", *key, step, loop.ACTION)
+        if not cfg.packed:
+            env = loop.make_generator("cuda", *key, step, loop.EXACT_ENV)
+            return (R.rollout(model, cfg.num_episodes, cfg.rollout_cap, action_generator=act,
+                              env_generator=env), None, None)
+        env = loop.make_generator("cuda", *carry.env_key, step)
+        return R.rollout_packed(model, carry, cfg.horizon, action_generator=act,
+                                env_generator=env, recorder=rec)
 
     # Warm-up: one whole step (cuBLAS handles, the kernel build).
-    traj, carry = rollout(TRAIN_STEP - 1, carry)
+    traj, carry, rec = rollout(TRAIN_STEP - 1, carry, rec)
     moments, out = process(opt_state, traj, moments, TRAIN_STEP, cfg.entropy_strength,
                            generators=gens(TRAIN_STEP - 1))
     out["scalars"].cpu()
 
     def advantage(traj, step):
-        return A.compute_packed(
-            traj.points, traj.mono_before, traj.mono_after, traj.empt_before,
-            traj.empt_after, traj.value_pred, traj.valid, traj.done_here, traj.boot_value,
-            cfg.reward_weights, cfg.gamma, moments, cfg.rtg_beta, step)
+        fields = (traj.points, traj.mono_before, traj.mono_after, traj.empt_before,
+                  traj.empt_after, traj.value_pred, traj.valid)
+        if cfg.packed:
+            return A.compute_packed(*fields, traj.done_here, traj.boot_value,
+                                    cfg.reward_weights, cfg.gamma, moments, cfg.rtg_beta, step)
+        return A.compute(*fields, cfg.reward_weights, cfg.gamma, moments, cfg.rtg_beta, step)
 
     # Host times: a step without the profiler.
-    merge_before = merge.launches
-    roll_host, (traj, carry) = timed_host_ms(lambda: rollout(TRAIN_STEP, carry))
+    merge_before, carry_in = merge.launches, carry
+    roll_host, (traj, carry, rec) = timed_host_ms(lambda: rollout(TRAIN_STEP, carry, rec))
     merges = merge.launches - merge_before
+    trips = traj.steps_executed
     adv_host, _ = timed_host_ms(lambda: advantage(traj, TRAIN_STEP + 1))
     proc_host, (moments, out) = timed_host_ms(lambda: process(
         opt_state, traj, moments, TRAIN_STEP + 1, cfg.entropy_strength,
         generators=gens(TRAIN_STEP)))
     sc = dict(zip(loop.SCALAR_KEYS, out["scalars"].tolist()))
     nb = int(sc["num_batches"])
+
+    # The recorder alone: the chunk's trips replayed through record_step
+    # from a fresh recorder, host-timed, then under the profiler.
+    recorder = None
+    if rec is not None:
+        def record_chunk():
+            r = capture.init_recorder(cfg.packed_lanes, cfg.scan_cap, "cuda")
+            ep_points, ep_moves = carry_in.ep_points, carry_in.ep_moves
+            for t in range(trips):
+                points, done = traj.points[t], traj.done_here[t]
+                r = capture.record_step(
+                    r, ep_moves=ep_moves, board_before=traj.board_before[t],
+                    board_after=traj.board_after[t], action=traj.action[t], points=points,
+                    entropy=traj.entropy[t], done=done, ep_points_new=ep_points + points,
+                    ep_moves_new=ep_moves + 1)
+                ep_points = torch.where(done, 0, ep_points + points)
+                ep_moves = torch.where(done, 0, ep_moves + 1)
+            return r
+
+        rec_host, _ = timed_host_ms(record_chunk)
+        rec_p, _ = profiled(record_chunk)
+        recorder = {"host_ms_per_trip": rec_host / trips,
+                    "device_ms_per_trip": None if rec_p["device_ms"] is None
+                    else rec_p["device_ms"] / trips,
+                    "host_ops_per_trip": rec_p["host_ops"] / trips,
+                    "kernels_per_trip": rec_p["kernels"] / trips,
+                    "share_of_rollout_host": rec_host / roll_host}
+
     # Device times: the next step under the profiler.
-    roll_p, (traj, carry) = profiled(lambda: rollout(TRAIN_STEP + 1, carry))
+    roll_p, (traj, carry, rec) = profiled(lambda: rollout(TRAIN_STEP + 1, carry, rec))
+    trips_dev = traj.steps_executed
     adv_p, _ = profiled(lambda: advantage(traj, TRAIN_STEP + 2))
     proc_p, (_, out2) = profiled(lambda: process(
         opt_state, traj, moments, TRAIN_STEP + 2, cfg.entropy_strength,
         generators=gens(TRAIN_STEP + 1)))
     roll_dev, adv_dev, proc_dev = (p["device_ms"] for p in (roll_p, adv_p, proc_p))
     nb_dev = int(dict(zip(loop.SCALAR_KEYS, out2["scalars"].tolist()))["num_batches"])
+    if recorder is not None and recorder["device_ms_per_trip"] is not None \
+            and roll_dev is not None:
+        recorder["share_of_rollout_device"] = recorder["device_ms_per_trip"] * trips_dev / roll_dev
 
     # Per-minibatch parts, replayed alone at the recipe's shapes.
     flat = lambda x: x.reshape((-1,) + x.shape[2:])[:cfg.batch_size]  # noqa: E731
     inputs = encode_boards(flat(traj.board_before).to(torch.int32))
     params = dict(model.named_parameters())
-    weights = torch.ones(cfg.batch_size, device="cuda")
+    weights = torch.ones(inputs.shape[0], device="cuda")
+    drop = torch.Generator(device="cuda").manual_seed(0)
 
     def fwd_bwd():
         model.train()
-        logits, values = model(inputs)
+        logits, values = model(inputs, drop)
         loss, _ = losses.ppo_loss(logits, values, flat(traj.action).long(),
                                   flat(traj.action_mask), flat(traj.value_pred),
                                   flat(traj.value_pred), flat(traj.logprobs), weights,
                                   kl_strength=0.02, critic_strength=0.2)
-        return torch.autograd.grad(loss, list(params.values()))
+        return torch.autograd.grad(loss, list(params.values()), allow_unused=True)
 
     groups = collections.defaultdict(list)
     for n, p in params.items():
@@ -686,19 +743,20 @@ def train_step_profile() -> dict:
     per_mb = None if learner_dev is None else learner_dev / nb_dev
     if per_mb is not None and None not in parts.values():
         parts["rest"] = per_mb - sum(parts.values())
-    trips = cfg.horizon
     return {
-        "config": argv, "state": f"{TRAIN_CHECKPOINT.name} train_state/env_carry",
+        "recipe": name, "config": argv, "state": f"{ckpt.name} train_state"
+        + ("/env_carry" if cfg.packed else ""),
         "train_steps": [TRAIN_STEP + 1, TRAIN_STEP + 2], "env_steps": sc["env_steps"],
-        "minibatches": [nb, nb_dev],
+        "trips": [trips, trips_dev], "minibatches": [nb, nb_dev],
         "merge_launches_rollout": merges,
         "rollout": {"host_ms": roll_host, "device_ms": roll_dev,
-                    "host_ms_per_env_step": roll_host / trips,
-                    "device_ms_per_env_step": None if roll_dev is None else roll_dev / trips,
+                    "host_ms_per_trip": roll_host / trips,
+                    "device_ms_per_trip": None if roll_dev is None else roll_dev / trips_dev,
                     "idle_share": None if roll_dev is None else 1 - roll_dev / roll_host,
                     "merge_device_ms": roll_p["named_ms"],
-                    "kernels_per_env_step": roll_p["kernels"] / trips,
-                    "host_ops_per_env_step": roll_p["host_ops"] / trips},
+                    "kernels_per_trip": roll_p["kernels"] / trips_dev,
+                    "host_ops_per_trip": roll_p["host_ops"] / trips_dev},
+        "recorder": recorder,
         "advantage": {"host_ms": adv_host, "device_ms": adv_dev},
         "learner": {"host_ms": proc_host - adv_host, "device_ms": learner_dev,
                     "host_ms_per_minibatch": (proc_host - adv_host) / nb,
@@ -721,6 +779,7 @@ def main() -> None:
     ap.add_argument("--merge-only", action="store_true")
     ap.add_argument("--search-only", action="store_true")
     ap.add_argument("--train-only", action="store_true")
+    ap.add_argument("--train-recipe", default="all", choices=("all", *TRAIN_PROFILES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -736,9 +795,12 @@ def main() -> None:
         search_all(result, out)
         return
     if args.train_only:
-        result["train"] = train_step_profile()
-        say(json.dumps(result["train"]))
-        out.write_text(json.dumps(result, indent=1))
+        result["train"] = {}
+        names = TRAIN_PROFILES if args.train_recipe == "all" else [args.train_recipe]
+        for name in names:
+            result["train"][name] = train_step_profile(name)
+            say(json.dumps(result["train"][name]))
+            out.write_text(json.dumps(result, indent=1))
         say(f"written: {out}")
         return
     built = merge.build()

@@ -65,3 +65,51 @@ def test_monotonicity_batch_shapes():
     got = TH.monotonicity(torch.as_tensor(b)).numpy()
     assert got.shape == (2, 3, 4)
     np.testing.assert_array_equal(got, want)
+
+
+# The rest of the suite: bit-exact. Every function but topological_score is
+# a sum of integers or of multiples of 0.25 in float32; topological_score
+# sums multiples of 0.1, and the port takes its position terms in the order
+# of the JAX package's reduction on the CPU (row-major, one by one).
+EXACT_SUITE = ("smoothness", "corner_bonus", "adjacency_bonus", "monotonic_chain_score",
+               "choose_anchor_corner", "topological_score")
+SUITE_SETS = dict(BOARD_SETS, high=lambda: _random_boards(4, max_exp=17, p_zero=0.1),
+                  empty=lambda: np.zeros((3, 4, 4), np.int32))
+
+
+@pytest.mark.parametrize("fn", EXACT_SUITE)
+@pytest.mark.parametrize("boards", sorted(SUITE_SETS))
+def test_suite_function_is_bit_exact(fn, boards):
+    b = SUITE_SETS[boards]()
+    want = np.asarray(jax.jit(getattr(JH, fn))(jnp.asarray(b)))
+    got = getattr(TH, fn)(torch.as_tensor(b)).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("boards", sorted(SUITE_SETS))
+def test_topological_score_with_anchor_is_bit_exact(boards):
+    b = SUITE_SETS[boards]()
+    anchor = np.random.default_rng(5).integers(0, 4, len(b)).astype(np.int32)
+    want = np.asarray(jax.jit(JH.topological_score)(jnp.asarray(b), jnp.asarray(anchor)))
+    got = TH.topological_score(torch.as_tensor(b), torch.as_tensor(anchor)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_full_suite_and_live_potentials_match():
+    b = np.concatenate([_random_boards(6, n=256), _edge_boards()])
+    want = jax.jit(JH.full_suite)(jnp.asarray(b))
+    got = TH.full_suite(torch.as_tensor(b))
+    assert list(got) == list(JH.full_suite(jnp.asarray(b[:1])))  # the reference's order
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(w), err_msg=k)
+    for g, w in zip(TH.live_potentials(torch.as_tensor(b)), JH.live_potentials(jnp.asarray(b))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_snake_tables_are_the_references():
+    from tpu2048.env import heuristics as jh
+
+    np.testing.assert_array_equal(np.array(TH._SNAKE_ORDER), jh._SNAKE_ORDER)
+    np.testing.assert_array_equal(np.array(TH._SNAKE_INDEX), jh._SNAKE_INDEX)

@@ -1,19 +1,28 @@
-"""The packed PPO trainer as a whole (tpu2048_torch/train/{loop,cli}.py).
+"""The single-device PPO trainer as a whole (tpu2048_torch/train/{loop,cli}.py).
 
-* One train step, its rollout replayed from a JAX chunk, against the JAX
-  package's rollout + ``process`` on the same parameters, augmentation plan
-  and shuffle. Tolerances: parameters 5e-4 absolute (bfloat16
-  Newton-Schulz, as in tests/test_torch_update.py), moments and the
-  advantage statistics 1e-5 relative, loss statistics 2e-4 relative, the
-  counts (samples, scores, tiles, env steps, minibatches) exact.
-* A 4-step CPU run equals 2 steps + --resume + 2 steps bit for bit.
-* The port's train_state/env_carry pair has the JAX-written pair's leaves,
-  shapes and dtypes; the JAX package's loaders read the port's files.
+* One train step against the JAX package's rollout + ``process`` on the
+  same parameters, augmentation plan and shuffle: a packed chunk, and an
+  exact-episodes rollout (its draws replayed). Tolerances: parameters 5e-4
+  absolute (bfloat16 Newton-Schulz, as in tests/test_torch_update.py),
+  moments and the advantage statistics 1e-5 relative, loss statistics 2e-4
+  relative, the counts (samples, scores, tiles, best lane, env steps,
+  minibatches) exact.
+* A 4-step CPU run equals 2 steps + --resume + 2 steps bit for bit: the
+  packed MLP without capture, and each non-expert recipe of scripts/ at a
+  small size (expG packed with capture, the URM's packed recipe, expA2's
+  exact episodes), which also print breakdowns and write viz JSON.
+* The port's train_state/env_carry pairs have the JAX-written pairs' leaves,
+  shapes and dtypes, and the JAX package's loaders read them (the MLP and
+  the URM, the recorder's episode included); the committed JAX-written
+  checkpoints (urm_r5, expG, expA) read by the port and written back are
+  equal leaf for leaf.
 * Full width on the CPU: a copy of checkpoints_expG resumes at step 20000
   on its 512 carried boards and writes its step-20000 checkpoint.
 * Unported flags raise NotImplementedError; asking for cuda without a card
   raises."""
 
+import contextlib
+import io
 import json
 import shutil
 from pathlib import Path
@@ -26,26 +35,34 @@ import torch
 
 from tests.test_torch_engine import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_optim import _flat
+from tests.test_torch_rollout_exact import injected as injected_exact
+from tests.test_torch_rollout_exact import jax_rollout
+from tests.test_torch_rollout_exact import port_model
 from tests.test_torch_rollout_packed import HORIZON, LANES, injected, jax_chunks
 from tpu2048.algo import advantage as JA
 from tpu2048.algo import augment as JAUG
+from tpu2048.algo import capture as JC
 from tpu2048.algo import rollout as JR
 from tpu2048.algo import update as JU
 from tpu2048.models import MLPConfig as JMLPConfig
+from tpu2048.models import URMConfig as JURMConfig
 from tpu2048.models import mlp as jmlp
+from tpu2048.models import urm as jurm
 from tpu2048.ops import optimizer as jopt
 from tpu2048.train import checkpoint as JCKPT
 from tpu2048.train import loop as JLOOP
 from tpu2048.train.evaluate import load_model_checkpoint as jload_model
 from tpu2048_torch.algo import advantage as TA
 from tpu2048_torch.algo import augment as TAUG
+from tpu2048_torch.algo import capture as TC
 from tpu2048_torch.algo import rollout as TR
 from tpu2048_torch.algo import update as TU
-from tpu2048_torch.models.mlp import GameMLP, MLPConfig, param_labels
+from tpu2048_torch.models.mlp import param_labels
 from tpu2048_torch.ops import optimizer as topt
 from tpu2048_torch.train import cli
 from tpu2048_torch.train import loop as TLOOP
-from tpu2048_torch.train.checkpoint import params_to_state_dict
+from tpu2048_torch.train.checkpoint import key_path
+from tpu2048_torch.utils.logger import MetricLogger
 
 ROOT = Path(__file__).resolve().parent.parent
 RECIPE = dict(packed=True, lanes=LANES, horizon=HORIZON, batch_size=48, hidden_size=32,
@@ -69,60 +86,55 @@ def test_scalar_keys_are_the_references():
         assert getattr(TLOOP.TrainConfig(), name) == getattr(JLOOP.TrainConfig(), name), name
 
 
-def test_one_train_step_matches_jax():
-    jcfg = JLOOP.TrainConfig(**RECIPE)
-    mcfg = JMLPConfig(hidden_dim=32, num_layers=2, dropout=0.0)
-    params = jmlp.init(jax.random.key(3), mcfg, zero_heads=False)
-    _, chunks = jax_chunks(mcfg, params)
-    jtraj_np, jcarry = chunks[0]
-    labels = jmlp.param_labels(params)
-    apply_train = lambda p, x, rng: jmlp.apply(p, mcfg, x, train=True, rng=rng)  # noqa: E731
-    ocfg = jopt.OptimizerConfig(learning_rate=1e-3, critic_lr=3e-4)
-    jprocess = JLOOP.make_process_fn(jcfg, apply_train, labels, JU.make_optimize_fn(
-        apply_train, labels, ocfg, jcfg.batch_size, jcfg.ppo_epochs, kl_diagnostic=False))
-    jtraj = JR.PackedTrajectory(**{k: jnp.asarray(v) for k, v in jtraj_np._asdict().items()})
-    k_proc = jax.random.key(7)
-    jparams, _, jmoments, jout = jprocess(params, jopt.init(params), jtraj,
-                                          JA.RtgMoments.initial(), k_proc, jnp.int32(1),
-                                          jnp.float32(0.02))
-    # The draws the JAX process took from k_proc: the augmentation plan, then
-    # the first epoch's shuffle.
+def jax_process_draws(jcfg, k_proc, flat_valid):
+    """The draws the JAX process takes from ``k_proc``: the augmentation
+    plan, then the first epoch's shuffle, as the port takes them."""
     k_aug, k_rest = jax.random.split(k_proc)
     k_opt, _ = jax.random.split(k_rest)
-    s_real = LANES * HORIZON
+    s_real = flat_valid.shape[0]
     num_slots = int(np.ceil(s_real * jcfg.upsample_ratio))
-    flat_valid = jtraj.valid.reshape(s_real)
     jplan = JAUG.plan(k_aug, num_slots, jnp.minimum(
         (jnp.sum(flat_valid).astype(jnp.float32) * jcfg.upsample_ratio).astype(jnp.int32),
         num_slots), flat_valid)
     k_perm = jax.random.split(k_opt, 3)[0]
     perm = np.asarray(jax.random.uniform(k_perm, (s_real + 2 * num_slots,)))[None]
+    plan = TAUG.AugPlan(*(torch.tensor(np.asarray(x)).long() for x in jplan[:2]),
+                        torch.tensor(np.asarray(jplan.valid)))
+    return plan, torch.tensor(perm)
 
-    tcfg = TLOOP.TrainConfig(**RECIPE, device="cpu")
-    model = GameMLP(MLPConfig(**mcfg.to_dict()))
-    model.load_state_dict(params_to_state_dict(jax.tree.map(np.asarray, params)))
-    model.eval()
-    near_end = np.arange(LANES) < 4  # as jax_chunks made them
-    carry = TR.EnvCarry(torch.tensor(jtraj_np.board_before[0].astype(np.int32)),
-                        np.zeros(2, np.uint32),
-                        torch.tensor(np.where(near_end, 5000, 0), dtype=torch.int32),
-                        torch.tensor(np.where(near_end, 300, 0), dtype=torch.int32))
-    actions, spawns, resets = injected(jtraj_np, jcarry.boards)
-    ttraj, _ = TR.rollout_packed(model, carry, HORIZON, actions=actions, spawns=spawns,
-                                 resets=resets)
+
+def jax_step(jcfg, mcfg, params, jtraj):
+    """The JAX package's process of ``jtraj`` at step 1: (params, moments,
+    outputs, the port's plan and shuffle draws)."""
+    labels = jmlp.param_labels(params)
+    apply_train = lambda p, x, rng: jmlp.apply(p, mcfg, x, train=True, rng=rng)  # noqa: E731
+    ocfg = jopt.OptimizerConfig(learning_rate=1e-3, critic_lr=3e-4)
+    jprocess = JLOOP.make_process_fn(jcfg, apply_train, labels, JU.make_optimize_fn(
+        apply_train, labels, ocfg, jcfg.batch_size, jcfg.ppo_epochs, kl_diagnostic=False))
+    k_proc = jax.random.key(7)
+    jparams, _, jmoments, jout = jprocess(params, jopt.init(params), jtraj,
+                                          JA.RtgMoments.initial(), k_proc, jnp.int32(1),
+                                          jnp.float32(0.02))
+    plan, perm = jax_process_draws(jcfg, k_proc, jtraj.valid.reshape(-1))
+    return jparams, jmoments, jout, plan, perm
+
+
+def port_step(tcfg, params, mcfg, ttraj, plan, perm):
+    """The port's process of ``ttraj`` at step 1 on a model holding
+    ``params``: (model, moments, outputs)."""
+    model = port_model(params, mcfg)
     state = topt.init(dict(model.named_parameters()))
     tprocess = TLOOP.make_process_fn(tcfg, TU.make_optimize_fn(
         model, param_labels(model), topt.OptimizerConfig(learning_rate=1e-3, critic_lr=3e-4),
         tcfg.batch_size, tcfg.ppo_epochs, kl_diagnostic=False))
-    plan = TAUG.AugPlan(*(torch.tensor(np.asarray(x)).long() for x in jplan[:2]),
-                        torch.tensor(np.asarray(jplan.valid)))
     tmoments, tout = tprocess(state, ttraj, TA.RtgMoments.initial(), 1, 0.02, aug_plan=plan,
-                              perm_draws=torch.tensor(perm))
+                              perm_draws=perm)
+    return model, tmoments, tout
 
+
+def assert_step_matches(model, tmoments, tout, jparams, jmoments, jout) -> dict:
     got = dict(zip(TLOOP.SCALAR_KEYS, tout["scalars"].tolist()))
     want = dict(zip(JLOOP.SCALAR_KEYS, np.asarray(jout["scalars"]).tolist()))
-    assert got["num_batches"] == want["num_batches"] >= 4 and got["env_steps"] == s_real
-    assert got["batch_max_score"] >= 5000 and got["augmented_samples"] > 0
     for k in TLOOP.SCALAR_KEYS:
         if k in EXACT:
             assert got[k] == want[k], k
@@ -138,6 +150,54 @@ def test_one_train_step_matches_jax():
     got_p = {n: p.detach().numpy() for n, p in model.named_parameters()}
     for name, w in _flat(jparams).items():
         np.testing.assert_allclose(got_p[name], w, rtol=0, atol=5e-4, err_msg=name)
+    return got
+
+
+def test_one_train_step_matches_jax():
+    jcfg = JLOOP.TrainConfig(**RECIPE)
+    mcfg = JMLPConfig(hidden_dim=32, num_layers=2, dropout=0.0)
+    params = jmlp.init(jax.random.key(3), mcfg, zero_heads=False)
+    _, chunks = jax_chunks(mcfg, params)
+    jtraj_np, jcarry = chunks[0]
+    jtraj = JR.PackedTrajectory(**{k: jnp.asarray(v) for k, v in jtraj_np._asdict().items()})
+    jparams, jmoments, jout, plan, perm = jax_step(jcfg, mcfg, params, jtraj)
+
+    near_end = np.arange(LANES) < 4  # as jax_chunks made them
+    carry = TR.EnvCarry(torch.tensor(jtraj_np.board_before[0].astype(np.int32)),
+                        np.zeros(2, np.uint32),
+                        torch.tensor(np.where(near_end, 5000, 0), dtype=torch.int32),
+                        torch.tensor(np.where(near_end, 300, 0), dtype=torch.int32))
+    actions, spawns, resets = injected(jtraj_np, jcarry.boards)
+    ttraj, _ = TR.rollout_packed(port_model(params, mcfg), carry, HORIZON, actions=actions,
+                                 spawns=spawns, resets=resets)
+    model, tmoments, tout = port_step(TLOOP.TrainConfig(**RECIPE, device="cpu"), params, mcfg,
+                                      ttraj, plan, perm)
+    got = assert_step_matches(model, tmoments, tout, jparams, jmoments, jout)
+    assert got["num_batches"] >= 4 and got["env_steps"] == LANES * HORIZON
+    assert got["batch_max_score"] >= 5000 and got["augmented_samples"] > 0
+
+
+EXACT_RECIPE = dict(RECIPE, packed=False, num_episodes=8, scan_cap=100)
+
+
+def test_one_exact_step_matches_jax():
+    """Exact-episodes mode: a JAX rollout of 8 games (cap 100, some cut)
+    replayed by the port's rollout, then one process each: (100, 8)
+    records, so S = 800 rows and 200 augmentation slots."""
+    jcfg = JLOOP.TrainConfig(**EXACT_RECIPE)
+    mcfg = JMLPConfig(hidden_dim=32, num_layers=2, dropout=0.0)
+    params = jmlp.init(jax.random.key(3), mcfg, zero_heads=False)
+    jtraj_np = jax_rollout(params, mcfg, 8, 100, seed=9)
+    jtraj = JR.Trajectory(**{k: jnp.asarray(v) for k, v in jtraj_np._asdict().items()})
+    jparams, jmoments, jout, plan, perm = jax_step(jcfg, mcfg, params, jtraj)
+    boards, actions, spawns = injected_exact(jtraj_np, 8, 100)
+    ttraj = TR.rollout(port_model(params, mcfg), 8, 100, boards=boards, actions=actions,
+                       spawns=spawns)
+    model, tmoments, tout = port_step(TLOOP.TrainConfig(**EXACT_RECIPE, device="cpu"), params,
+                                      mcfg, ttraj, plan, perm)
+    got = assert_step_matches(model, tmoments, tout, jparams, jmoments, jout)
+    assert got["env_steps"] == int(jtraj_np.num_moves.sum()) < 800
+    assert got["best_idx"] == int(np.argmax(jtraj_np.total_points)) and got["num_batches"] > 4
 
 
 TINY = ["train", "--packed", "--lanes", "8", "--horizon", "6", "--batch-size", "16",
@@ -277,16 +337,11 @@ def test_resumes_checkpoints_expG_at_full_width(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["-t", "urm"], "--model-type urm"),
-    ([], "without --packed"),
-    (["--packed"], "--no-packed-capture"),
     (["--packed", "--no-packed-capture", "--expert-iter"], "--expert-iter"),
     (["--packed", "--no-packed-capture", "--anchor-kl", "0.1"], "--anchor-kl"),
     (["--packed", "--no-packed-capture", "--mesh-data", "2"], "--mesh-data"),
-    (["--packed", "--no-packed-capture", "--viz-dir", "v"], "--viz-dir"),
     (["--packed", "--no-packed-capture", "--export-demo"], "--export-demo"),
     (["--packed", "--no-packed-capture", "--wandb"], "--wandb"),
-    (["--packed", "--no-packed-capture", "--show-last-steps", "3"], "--show-last-steps"),
     (["--packed", "--no-packed-capture", "--num-processes", "2"], "--num-processes"),
     (["--packed", "--no-packed-capture", "--platform", "cpu"], "--platform"),
 ])
@@ -304,3 +359,194 @@ def test_cuda_without_a_card_raises(tmp_path):
         cli.main(TINY[:-4] + ["--steps", "1", "--checkpoint-dir", str(tmp_path),
                               "--device", "cuda"])
     assert not any(tmp_path.iterdir())
+
+
+# --- Every non-expert recipe of scripts/ through the CLI, at a small size ---
+# Each keeps its script's flags but for the sizes (lanes, horizon, episodes,
+# widths, batch, scan cap), the directories, --print-freq 1 and
+# --show-last-steps 2.
+RECIPES = {
+    "expG_packed": ["--packed", "--lanes", "8", "--horizon", "48", "--batch-size", "64",
+                    "--lr", "1e-3", "--critic-lr", "1e-4", "-H", "16", "--num-layers", "3",
+                    "--gamma", "0.995", "--dropout", "0.0", "--entropy", "0.02",
+                    "--adaptive-beta", "--target-entropy", "0.25", "--beta-min", "0.001",
+                    "--beta-max", "0.05", "--beta-lr", "0.005", "--points", "0.10", "--mono",
+                    "1.0", "--critic", "0.2", "--rtg-beta", "0.99", "--warmup-steps", "1",
+                    "--upsample-ratio", "0.25", "-t", "mlp", "--no-kl-diagnostic",
+                    "--eval-freq", "3", "--eval-games", "4", "--checkpoint-freq", "3",
+                    "--scan-cap", "96"],
+    "urm_long": ["--packed", "--lanes", "8", "--horizon", "48", "--batch-size", "64",
+                 "-t", "urm", "-H", "16", "--num-layers", "2", "--num-heads", "4",
+                 "--num-loops", "4", "--truncated-loops", "1", "--lr", "1e-3",
+                 "--critic-lr", "1e-4", "--gamma", "0.99", "--entropy", "0.02",
+                 "--dropout", "0.0", "--points", "0.10", "--mono", "1.0", "--critic", "0.2",
+                 "--rtg-beta", "0.99", "--warmup-steps", "1", "--upsample-ratio", "0.25",
+                 "--no-kl-diagnostic", "--eval-freq", "3", "--eval-games", "4",
+                 "--checkpoint-freq", "3", "--scan-cap", "96"],
+    "expA2_exact": ["--episodes", "4", "--batch-size", "128", "--lr", "5e-4",
+                    "--critic-lr", "3e-4", "-H", "16", "--gamma", "0.995", "--entropy",
+                    "0.02", "--adaptive-beta", "--target-entropy", "0.25", "--beta-min",
+                    "0.001", "--beta-max", "0.05", "--beta-lr", "0.005", "--points", "0.10",
+                    "--mono", "1.0", "--critic", "0.2", "--rtg-beta", "0.99",
+                    "--warmup-steps", "1", "--upsample-ratio", "0.25", "-t", "mlp",
+                    "--no-kl-diagnostic", "--eval-freq", "3", "--eval-games", "4",
+                    "--checkpoint-freq", "3", "--scan-cap", "160"],
+}
+
+
+def _recipe_run(flags, base, name, steps, *extra):
+    cli.main(["train", *flags, "--steps", str(steps), "--checkpoint-dir", str(base / "ck"),
+              "--log-dir", str(base / f"log_{name}"), "--viz-dir", str(base / "viz"),
+              "--print-freq", "1", "--show-last-steps", "2", "--device", "cpu", *extra])
+
+
+@pytest.fixture(scope="module", params=sorted(RECIPES))
+def recipe_runs(request, tmp_path_factory):
+    """4 steps straight (``a``), and 2 steps then --resume to 4 (``b``), with
+    what each printed."""
+    flags = RECIPES[request.param]
+    base = tmp_path_factory.mktemp(request.param)
+    out = {}
+    for run, parts in (("a", [(4, ())]), ("b", [(2, ()), (4, ("--resume",))])):
+        printed = []
+        for steps, extra in parts:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _recipe_run(flags, base / run, f"{steps}", steps, *extra)
+            printed.append(buf.getvalue())
+        out[run] = (base / run, printed)
+    return request.param, out
+
+
+def test_recipe_prints_breakdowns_and_writes_viz(recipe_runs):
+    name, out = recipe_runs
+    run_dir, (printed,) = out["a"]
+    assert printed.count("Reward breakdown:") >= 2 and "PBRS Reward Shaping" in printed
+    assert "Final state:" in printed and "Last 2 steps (pts:" in printed
+    viz = sorted((run_dir / "viz").glob("step_*.json"))
+    assert len(viz) >= 2
+    data = json.loads(viz[-1].read_text())
+    committed = json.loads((ROOT / "viz_data_expG" / "step_000000.json").read_text())
+    assert list(data) == list(committed) and data["moves"]
+    assert list(data["moves"][0]["rewards"]) == list(committed["moves"][0]["rewards"])
+    (log,) = (run_dir / "log_4").glob("*.jsonl")
+    assert "eval/avg_score" in log.read_text()
+    state = json.loads((run_dir / "ck" / "train_state.json").read_text())
+    assert state["config"]["model_type"] == ("urm" if name == "urm_long" else "mlp")
+    assert (run_dir / "ck" / "best_model.npz").exists()
+
+
+def test_recipe_resume_is_bit_identical(recipe_runs):
+    """The resumed run trains exactly as the straight one; a packed run's
+    env_carry keeps the lanes and the recorded best episode (lanes mid-
+    episode at the resume are tainted, so the resumed recorder may commit
+    less)."""
+    name, out = recipe_runs
+    (a_dir, _), (b_dir, (_, resumed)) = out["a"], out["b"]
+    assert "Resumed from step 2" in resumed
+    a, b = _npz(a_dir / "ck" / "train_state.npz"), _npz(b_dir / "ck" / "train_state.npz")
+    assert set(a) == set(b)
+    for k in a:
+        if k != "__manifest__":
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    if name == "expA2_exact":
+        assert not (b_dir / "ck" / "env_carry.npz").exists()
+        return
+    assert "Resumed packed env carry" in resumed
+    ca, cb = _npz(a_dir / "ck" / "env_carry.npz"), _npz(b_dir / "ck" / "env_carry.npz")
+    assert json.loads(str(cb["__manifest__"]))["has_recorder"] is True
+    for k in ("['boards']", "['ep_points']", "['ep_moves']"):
+        np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
+    assert 0 < int(cb["['best_score']"]) <= int(ca["['best_score']"])
+
+
+def test_unported_flag_names_what_is_missing():
+    """The replaced cases: -t urm, exact mode (no --packed), packed capture,
+    --viz-dir and --show-last-steps all configure and pass check_ported."""
+    cfg = cli.train_config(["-t", "urm", "--viz-dir", "v", "--show-last-steps", "3",
+                            "--device", "cpu"])
+    TLOOP.check_ported(cfg)
+    assert (cfg.model_type, cfg.packed, cfg.packed_capture) == ("urm", False, True)
+    TLOOP.check_ported(cli.train_config(["--packed", "--device", "cpu"]))
+    with pytest.raises(ValueError, match="Unknown model type"):
+        TLOOP.check_ported(cli.train_config(["-t", "cnn"]))
+
+
+def _jax_model(model_config: dict, model_type: str):
+    """(the JAX params tree, its labels) of a manifest's model."""
+    if model_type == "urm":
+        cfg = JURMConfig(**model_config)
+        params = jurm.init(jax.random.key(0), cfg)
+        return params, jurm.param_labels(params)
+    params = jmlp.init(jax.random.key(0), JMLPConfig(**model_config))
+    return params, jmlp.param_labels(params)
+
+
+def test_port_checkpoints_read_in_jax(recipe_runs, tmp_path):
+    """The train_state (MLP or URM) and env_carry (with the recorder's
+    episode) the port wrote, read by the JAX package's loaders; their leaves,
+    shapes and dtypes those the JAX package writes."""
+    name, out = recipe_runs
+    ck = out["a"][0] / "ck"
+    manifest = json.loads((ck / "train_state.json").read_text())
+    params, labels = _jax_model(manifest["model_config"], manifest["config"]["model_type"])
+    tree = dict(params=params, opt_state=jopt.init(params, labels),
+                moments=JA.RtgMoments.initial(), key=jax.random.key_data(jax.random.key(0)))
+    loaded, m = JCKPT.load_checkpoint(ck, "train_state", tree)
+    assert m["train_step"] == 3
+    got = _npz(ck / "train_state.npz")
+    for k, v in _flat(loaded["params"]).items():
+        np.testing.assert_array_equal(v, got[f"['params']{key_path(k)}"], err_msg=k)
+    JCKPT.save_checkpoint(tmp_path, "train_state", arrays_tree=tree, manifest={})
+    want = _npz(tmp_path / "train_state.npz")
+    assert {k: (v.shape, v.dtype) for k, v in got.items() if k != "__manifest__"} == \
+           {k: (v.shape, v.dtype) for k, v in want.items() if k != "__manifest__"}
+    if name == "expA2_exact":
+        return
+    cap = manifest["config"]["scan_cap"]
+    carry, best = JLOOP.load_env_carry(str(ck), 8, cap)
+    written = _npz(ck / "env_carry.npz")
+    assert best is not None and int(best["best_score"]) > 0
+    for k, v in best.items():
+        np.testing.assert_array_equal(np.asarray(v), written[f"['{k}']"], err_msg=k)
+    JLOOP.save_env_carry(tmp_path, JR.init_env_carry(jax.random.key(1), 8),
+                         JC.init_recorder(8, cap), 3, 8, 1)
+    want = _npz(tmp_path / "env_carry.npz")
+    assert {k: (v.shape, v.dtype) for k, v in written.items() if k != "__manifest__"} == \
+           {k: (v.shape, v.dtype) for k, v in want.items() if k != "__manifest__"}
+    assert json.loads(str(written["__manifest__"])) == dict(
+        json.loads(str(want["__manifest__"])), train_step=3)
+
+
+@pytest.mark.parametrize("src", ["checkpoints_urm_r5", "checkpoints_expG", "checkpoints_expA"])
+def test_committed_checkpoints_round_trip_through_the_port(src, tmp_path):
+    """A JAX-written train_state (and env_carry with its recorded episode)
+    read by the port and written back: every leaf equal."""
+    d = ROOT / src
+    manifest = json.loads((d / "train_state.json").read_text())
+    fields = set(TLOOP.TrainConfig.__dataclass_fields__)
+    cfg = TLOOP.TrainConfig(**{k: v for k, v in manifest["config"].items() if k in fields},
+                            device="cpu")
+    _, model, _ = TLOOP.build_model(cfg)
+    opt_state, moments, key, m = TLOOP.load_train_state(d, model, "cpu")
+    assert m["train_step"] == manifest["train_step"]
+    want = _npz(d / "train_state.npz")
+    got = TLOOP.train_state_leaves(model, opt_state, moments, key)
+    assert set(got) == set(want) - {"__manifest__"}
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+        assert v.dtype == want[k].dtype, k
+    if not cfg.packed:
+        return
+    carry, best = TLOOP.load_env_carry(d, cfg.packed_lanes, cfg.scan_cap, "cpu",
+                                       MetricLogger())
+    assert best is not None and int(best["best_len"]) > 0
+    rec = TC.init_recorder(1, cfg.scan_cap)._replace(**best)
+    TLOOP.save_env_carry(tmp_path, carry, rec, m["train_step"], cfg.packed_lanes)
+    want, got = _npz(d / "env_carry.npz"), _npz(tmp_path / "env_carry.npz")
+    assert set(got) == set(want)
+    for k in want:
+        if k != "__manifest__":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+            assert got[k].dtype == want[k].dtype, k
+    assert json.loads(str(got["__manifest__"])) == json.loads(str(want["__manifest__"]))

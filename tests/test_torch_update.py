@@ -159,3 +159,62 @@ def test_plan_draws_sources_among_valid_rows():
     assert ((kept > 0.45) & (kept < 0.55)).all()
     counts = np.bincount(p.src[:3000].numpy() % 3, minlength=3)
     assert counts[0] == 0 and abs(counts[1] - counts[2]) < 200
+
+
+def test_urm_optimize_matches_jax(data):
+    """The same learner call with a small URM (3 loops, the first truncated)
+    at dropout 0: two epochs of the lazily augmented dataset, KL diagnostic
+    on. Muon takes every strictly 2-D weight (the depthwise conv's (inter, k)
+    included), AdamW the 3-D init_hidden, the biases and the norms.
+    Tolerances as for the MLP: statistics 2e-4 relative, KL 1e-2,
+    parameters 5e-4 absolute (bfloat16 Newton-Schulz over 8 steps)."""
+    from tpu2048.models import URMConfig as JURMConfig
+    from tpu2048.models import urm as jurm
+    from tpu2048_torch.models import urm as turm
+
+    d = data
+    cfg = JURMConfig(hidden_dim=16, num_layers=2, num_heads=2, num_loops=3,
+                     num_truncated_loops=1, dropout=0.0)
+    params = jurm.init(jax.random.key(2), cfg, zero_heads=False)
+    labels = jurm.param_labels(params)
+    ocfg = dict(learning_rate=1e-3, critic_lr=3e-4)
+    joptimize = JU.make_optimize_fn(
+        lambda p, x, rng: jurm.apply(p, cfg, x, train=True, rng=rng), labels,
+        jopt.OptimizerConfig(**ocfg), BATCH, EPOCHS, kl_diagnostic=True)
+    jds = JU.Dataset(board_before=jnp.asarray(d["board"]), action=jnp.asarray(d["action"]),
+                     action_mask=jnp.asarray(d["mask"]), advantage=jnp.asarray(d["advantage"]),
+                     G_norm=jnp.asarray(d["G_norm"]), logprobs=jnp.asarray(d["logprobs"]),
+                     target_probs=jnp.zeros((S_REAL, 4)), valid=jnp.asarray(d["valid"]),
+                     aug_src=jnp.asarray(d["aug_src"]), aug_tf=jnp.asarray(d["aug_tf"]))
+    key = jax.random.key(5)
+    jparams, jstate, jstats = jax.jit(joptimize)(params, jopt.init(params), jds, key,
+                                                 jnp.float32(0.02), 0.2, jnp.float32(1.0))
+
+    model = turm.GameURM(turm.URMConfig(**cfg.to_dict()))
+    model.load_state_dict(params_to_state_dict(jax.tree.map(np.asarray, params)))
+    model.eval()
+    toptimize = TU.make_optimize_fn(model, turm.param_labels(model),
+                                    topt.OptimizerConfig(**ocfg), BATCH, EPOCHS)
+    t = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
+    tds = TU.Dataset(board_before=t(d["board"]), action=t(d["action"]), action_mask=t(d["mask"]),
+                     advantage=t(d["advantage"]), G_norm=t(d["G_norm"]),
+                     logprobs=t(d["logprobs"]), valid=t(d["valid"]), aug_src=t(d["aug_src"]),
+                     aug_tf=t(d["aug_tf"]))
+    state = topt.init(dict(model.named_parameters()))
+    tstats = toptimize(state, tds, 0.02, 0.2, np.float32(1.0),
+                       perm_draws=t(jax_perm_draws(key)))
+
+    assert float(tstats.num_batches) == float(jstats.num_batches) == 4 * EPOCHS
+    for f in TU.OptimizeStats._fields:
+        tol = KL_TOL if f.startswith("kl_") else STAT_TOL
+        np.testing.assert_allclose(float(getattr(tstats, f)), float(getattr(jstats, f)),
+                                   rtol=tol, atol=0, err_msg=f)
+    got = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    want = _flat(jparams)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=PARAM_TOL, err_msg=name)
+        # Every leaf moves; init_hidden by weight decay and AdamW's zero-
+        # gradient step alone.
+        assert not np.array_equal(w, np.asarray(_flat(params)[name])), name
+    np.testing.assert_array_equal(state.m["init_hidden"].numpy(), 0)

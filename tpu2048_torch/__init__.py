@@ -3,17 +3,20 @@
 Mirrors the module layout of ``tpu2048`` so each counterpart is easy to find:
 
   env/      the batched 2048 engine (merge, spawn, step) on torch tensors,
-            the heuristics of the shaping potential, board symmetries
+            the heuristic suite (the shaping potentials and the logging
+            signals), board symmetries
   ops/      hand-written CUDA kernels (``csrc/``), their nvcc build and
             wrappers; the optimizer (Muon + AdamW) and the lr schedule
   models/   board encoding, initializers, the GameMLP and GameURM
-            actor-critics as ``nn.Module``s (the URM forward only)
-  algo/     the game loops (evaluation and packed training rollout), masked
-            policy, expectimax search, advantage, augmentation, PPO losses
-            and the learner
-  train/    checkpoints (read and write), the packed PPO trainer,
+            actor-critics as ``nn.Module``s
+  algo/     the game loops (evaluation, the exact-episodes and packed
+            training rollouts), the best-episode recorder, masked policy,
+            expectimax search, advantage, augmentation, PPO losses and the
+            learner
+  train/    checkpoints (read and write), the single-device PPO trainer,
             ``evaluate`` (greedy, sampled, search) and the CLI
-  utils/    card timing, training statistics, the metric logger
+  utils/    card timing, training statistics, the metric logger, the
+            episode printers and viz JSON exporters
   serve.py  the HTTP policy server (policy, greedy and search modes)
 
 Imports torch, numpy and the standard library only — never ``jax`` and never

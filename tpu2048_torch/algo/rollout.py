@@ -1,9 +1,11 @@
-"""The game loops: the evaluation loop (N games to the end, greedy, sampled
-or by expectimax search) and the packed rollout that training runs (below,
-``rollout_packed``).
+"""The game loops: the evaluation loop ``play`` (N games to the end, greedy,
+sampled or by expectimax search) and the two rollouts that training runs,
+``rollout`` (exact episodes) and ``rollout_packed`` (auto-reset lanes, with
+the best-episode recorder of ``algo/capture.py``).
 
-Counterpart of the eval-only part of ``tpu2048/algo/rollout.py::rollout`` and
-of ``tpu2048/algo/search.py::search_rollout`` (whose loop has the same alive,
+``play`` is the counterpart of the eval part of
+``tpu2048/algo/rollout.py::rollout`` and of
+``tpu2048/algo/search.py::search_rollout`` (whose loop has the same alive,
 points and frozen-board rules). One trip of the loop is one step of every
 game:
 
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 
 from ..env import engine, heuristics
 from ..models.encoding import encode_boards
+from . import capture
 from .search import expectimax_scores
 
 
@@ -119,6 +122,149 @@ def play(model, boards: torch.Tensor, max_steps: int, spawns, *,
 
 
 # ---------------------------------------------------------------------------
+# Exact-episodes rollout for training: counterpart of ``Trajectory`` and the
+# policy path of ``rollout`` in ``tpu2048/algo/rollout.py``. N games from
+# fresh boards, each to its end or ``max_steps`` moves, every step recorded
+# into (T, N) buffers; the loop stops when no game is alive.
+# ---------------------------------------------------------------------------
+
+
+class Trajectory(NamedTuple):
+    """(T, N, ...) step records and (N,) episode summaries, under the JAX
+    package's names. A record is 0 where ``valid`` is False."""
+
+    board_before: torch.Tensor  # (T, N, 4, 4) int8
+    board_after: torch.Tensor  # (T, N, 4, 4) int8 (after the spawn)
+    action: torch.Tensor  # (T, N) int8, the action taken
+    target_action: torch.Tensor  # (T, N) int8 (== action; no expert)
+    target_probs: torch.Tensor  # (T, N, 4) float32 one-hot of target_action
+    logprobs: torch.Tensor  # (T, N, 4) float32
+    action_mask: torch.Tensor  # (T, N, 4) bool, True = invalid
+    value_pred: torch.Tensor  # (T, N) float32
+    entropy: torch.Tensor  # (T, N) float32
+    points: torch.Tensor  # (T, N) int32
+    preview: torch.Tensor  # (T, N, 4) int32
+    max_created: torch.Tensor  # (T, N) int8
+    mono_before: torch.Tensor  # (T, N) int32
+    mono_after: torch.Tensor  # (T, N) int32 (0 on the terminal step)
+    empt_before: torch.Tensor  # (T, N) int32
+    empt_after: torch.Tensor  # (T, N) int32 (0 on the terminal step)
+    valid: torch.Tensor  # (T, N) bool, the step was played
+    done_here: torch.Tensor  # (T, N) bool, the step ended the game
+    final_board: torch.Tensor  # (N, 4, 4) int8
+    total_points: torch.Tensor  # (N,) int32
+    num_moves: torch.Tensor  # (N,) int32
+    ended: torch.Tensor  # (N,) bool, ended naturally (not cut by max_steps)
+    steps_executed: int  # trips of the loop
+
+    @property
+    def total_steps(self) -> torch.Tensor:
+        """The reference's count: its 1-indexed step counter skips the
+        terminal move, so a game that ended reports len(moves) - 1."""
+        return self.num_moves - self.ended.to(torch.int32)
+
+
+_RECORDS = dict(
+    board_before=((4, 4), torch.int8), board_after=((4, 4), torch.int8),
+    action=((), torch.int8), target_action=((), torch.int8),
+    target_probs=((4,), torch.float32), logprobs=((4,), torch.float32),
+    action_mask=((4,), torch.bool), value_pred=((), torch.float32),
+    entropy=((), torch.float32), points=((), torch.int32),
+    preview=((4,), torch.int32), max_created=((), torch.int8),
+    mono_before=((), torch.int32), mono_after=((), torch.int32),
+    empt_before=((), torch.int32), empt_after=((), torch.int32),
+    valid=((), torch.bool), done_here=((), torch.bool))
+
+
+@torch.no_grad()
+def rollout(model, num_envs: int, max_steps: int, *,
+            action_generator: torch.Generator | None = None,
+            env_generator: torch.Generator | None = None,
+            greedy: bool = False, expert_depth: int = 0,
+            boards: torch.Tensor | None = None,
+            actions: torch.Tensor | None = None,
+            spawns: torch.Tensor | None = None) -> Trajectory:
+    """Play ``num_envs`` games from fresh boards to their ends (or
+    ``max_steps`` moves), recording every step.
+
+    The fresh boards and the spawns come from ``env_generator``, sampled
+    actions from ``action_generator`` (``greedy`` takes the masked argmax).
+    A test replays another engine's rollout instead: ``boards`` (N, 4, 4),
+    ``actions`` (T, N) and ``spawns`` (T, 2, N) (``engine.spawn_tile``
+    draws). One merge launch a trip (``engine.step`` hands back the next
+    boards' moves); the loop reads ``alive.any()`` once a trip, to stop when
+    every game has ended. Expert iteration (``expert_depth > 0``) is not
+    ported yet."""
+    if expert_depth > 0:
+        raise NotImplementedError("rollout(expert_depth > 0): expert iteration is "
+                                  "not yet ported (ROADMAP.md)")
+    if model.training:
+        raise ValueError("rollout runs the policy in eval mode")
+    n, cap = num_envs, max_steps
+    device = next(model.parameters()).device
+    if boards is None:
+        boards = engine.reset(n, device, generator=env_generator)
+    moves = engine.all_moves(boards)
+    buf = {k: torch.zeros((cap, n) + shape, dtype=dtype, device=device)
+           for k, (shape, dtype) in _RECORDS.items()}
+    alive = torch.ones(n, dtype=torch.bool, device=device)
+    total_points = torch.zeros(n, dtype=torch.int32, device=device)
+    num_moves = torch.zeros_like(total_points)
+    ended = torch.zeros_like(alive)
+    final_board = boards.to(torch.int8)
+    t = 0
+    while t < cap and bool(alive.any()):
+        invalid = moves.action_mask
+        logits, value = model(encode_boards(boards))
+        masked, logprobs, entropy = masked_policy(logits, invalid)
+        if actions is not None:
+            action = actions[t].long()
+        elif greedy:
+            action = masked.argmax(-1)
+        else:
+            action = torch.multinomial(logprobs.exp(), 1, generator=action_generator)[:, 0]
+        mono_b, empt_b = heuristics.monotonicity(boards), heuristics.emptiness(boards)
+        draws = (spawns[t] if spawns is not None
+                 else engine.spawn_draws((n,), env_generator, device))
+        res = engine.step(boards, action, draws, moves=moves)
+        # The "after" potentials are taken before the spawn and are 0 on the
+        # terminal step (the reference's quirk).
+        sel = action[None, :, None, None].expand(1, n, 4, 4)
+        moved = torch.gather(moves.boards, 0, sel)[0]
+        done = res.done
+        # Written for every lane; a lane's steps after its end are zeroed
+        # below with ``valid``, as the JAX loop writes only alive lanes.
+        for k, v in (
+                ("board_before", boards), ("board_after", res.board),
+                ("action", action), ("target_action", action),
+                ("target_probs", F.one_hot(action, 4)), ("logprobs", logprobs),
+                ("action_mask", invalid), ("value_pred", value[..., 0]),
+                ("entropy", entropy), ("points", res.reward),
+                ("preview", moves.preview_rewards), ("max_created", res.max_created),
+                ("mono_before", mono_b),
+                ("mono_after", torch.where(done, 0, heuristics.monotonicity(moved))),
+                ("empt_before", empt_b),
+                ("empt_after", torch.where(done, 0, heuristics.emptiness(moved))),
+                ("valid", alive), ("done_here", done)):
+            buf[k][t] = v
+        total_points += torch.where(alive, res.reward, 0)
+        num_moves += alive.to(torch.int32)
+        ended |= done & alive
+        final_board = torch.where(alive[:, None, None], res.board.to(torch.int8),
+                                  final_board)
+        alive = alive & ~done
+        boards, moves = res.board, res.moves
+        t += 1
+    valid = buf["valid"]
+    for k, v in buf.items():
+        if k != "valid":
+            mask = valid.reshape(valid.shape + (1,) * (v.dim() - 2))
+            buf[k] = torch.where(mask, v, torch.zeros((), dtype=v.dtype, device=device))
+    return Trajectory(**buf, final_board=final_board, total_points=total_points,
+                      num_moves=num_moves, ended=ended, steps_executed=t)
+
+
+# ---------------------------------------------------------------------------
 # Packed (auto-reset) rollout for training: counterpart of ``EnvCarry``,
 # ``init_env_carry``, ``PackedTrajectory`` and ``rollout_packed`` in
 # ``tpu2048/algo/rollout.py``. ``lanes`` persistent games advance exactly
@@ -183,9 +329,12 @@ def rollout_packed(model, carry: EnvCarry, num_steps: int, *,
                    env_generator: torch.Generator | None = None,
                    actions: torch.Tensor | None = None,
                    spawns: torch.Tensor | None = None,
-                   resets: torch.Tensor | None = None) -> tuple:
+                   resets: torch.Tensor | None = None,
+                   recorder: capture.EpisodeRecorder | None = None) -> tuple:
     """Step every lane ``num_steps`` times with auto-reset; returns
-    (PackedTrajectory, the next chunk's EnvCarry).
+    (PackedTrajectory, the next chunk's EnvCarry), and the updated
+    ``recorder`` third when one is given (``algo/capture.py``: each trip is
+    recorded, and the best completed episode kept across chunks).
 
     Actions are sampled from the masked policy with ``action_generator``,
     spawns and fresh boards drawn from ``env_generator``. A test replays
@@ -242,6 +391,12 @@ def rollout_packed(model, carry: EnvCarry, num_steps: int, *,
                 ("ep_len", torch.where(done, ep_moves_new, 0)),
                 ("ep_tile", torch.where(done, engine.max_tile_value(res.board), 0))):
             recs[k].append(v)
+        if recorder is not None:
+            recorder = capture.record_step(
+                recorder, ep_moves=ep_moves, board_before=boards,
+                board_after=res.board, action=action, points=res.reward,
+                entropy=entropy, done=done, ep_points_new=ep_points_new,
+                ep_moves_new=ep_moves_new)
         fresh = (resets[t] if resets is not None
                  else engine.reset(n, device, generator=env_generator))
         boards = torch.where(done[:, None, None], fresh, res.board)
@@ -252,4 +407,5 @@ def rollout_packed(model, carry: EnvCarry, num_steps: int, *,
     _, boot = model(encode_boards(boards))
     traj = PackedTrajectory(**{k: torch.stack(v) for k, v in recs.items()},
                             boot_value=boot[..., 0], steps_executed=num_steps)
-    return traj, EnvCarry(boards, carry.env_key, ep_points, ep_moves)
+    carry_out = EnvCarry(boards, carry.env_key, ep_points, ep_moves)
+    return (traj, carry_out) if recorder is None else (traj, carry_out, recorder)

@@ -1,6 +1,7 @@
 """The learner: shuffled minibatch PPO epochs with an optimizer step per
 minibatch (counterpart of ``tpu2048/algo/update.py``: ``Dataset``,
-``OptimizeStats``, ``make_optimize_fn``).
+``OptimizeStats``, ``make_optimize_fn``), for the MLP and the URM alike
+(``model(inputs, dropout_generator)`` in train mode).
 
  * The optimizer steps once per MINIBATCH; the learning-rate schedule ticks
    once per train step (the multiplier is an input).
@@ -122,9 +123,15 @@ def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
                     logits, values, batch["action"], batch["mask"],
                     batch["advantage"], batch["rtg"], batch["logprobs"], weights,
                     kl_strength=beta, critic_strength=critic_strength)
-                grads = torch.autograd.grad(loss, [params[n] for n in names])
-                gnorm = opt.update_(params, dict(zip(names, grads)), opt_state,
-                                    labels, schedule_mult, opt_config)
+                # A parameter the loss does not reach (the URM's init_hidden
+                # under truncated backprop) gets a zero gradient, as jax.grad
+                # gives it.
+                grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                            allow_unused=True)
+                grads = {n: torch.zeros_like(params[n]) if g is None else g
+                         for n, g in zip(names, grads)}
+                gnorm = opt.update_(params, grads, opt_state, labels, schedule_mult,
+                                    opt_config)
                 if kl_diagnostic:
                     with torch.no_grad():
                         new_logits, _ = model(inputs, dropout_generator)

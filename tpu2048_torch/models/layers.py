@@ -1,5 +1,6 @@
 """The layers of the model families (counterpart of
-``tpu2048/models/layers.py``: ``linear``, ``layer_norm`` and ``rms_norm``).
+``tpu2048/models/layers.py``: ``linear``, ``layer_norm``, ``rms_norm`` and
+``dropout``).
 
 Parameters carry the JAX package's names (``w``/``b`` for a linear layer,
 ``g``/``b`` for a layer norm), so a module's ``state_dict`` keys are the JAX
@@ -53,3 +54,15 @@ def rms_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            training: bool) -> torch.Tensor:
+    """Inverted dropout in train mode (kept values scaled by 1/(1-rate)), its
+    masks drawn from ``generator``; a no-op in eval mode or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout > 0 in train mode needs a generator for its masks")
+    keep = torch.bernoulli(torch.full_like(x, 1.0 - rate), generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))

@@ -20,7 +20,7 @@ from torch import nn
 from .. import NUM_ACTIONS
 from .encoding import INPUT_DIM
 from .initializers import zero_head
-from .layers import LayerNorm, Linear
+from .layers import LayerNorm, Linear, dropout
 
 
 @dataclass(frozen=True)
@@ -76,23 +76,11 @@ class GameMLP(nn.Module):
                     for name, value in zero_head(dict(head.named_parameters())).items():
                         getattr(head, name).copy_(value)
 
-    def _dropout(self, x: torch.Tensor, generator) -> torch.Tensor:
-        """Inverted dropout in train mode (scale by 1/(1-p)); a no-op in eval
-        mode or at rate 0."""
-        rate = self.config.dropout
-        if not self.training or rate == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("GameMLP in train mode with dropout > 0 needs a "
-                             "generator for the dropout masks")
-        keep = torch.bernoulli(torch.full_like(x, 1.0 - rate), generator=generator)
-        return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
-
     def forward(self, inputs: torch.Tensor,
                 generator: torch.Generator | None = None) -> tuple:
         x = self.stem(inputs.to(torch.float32))
         for block in self.blocks:
-            x = x + self._dropout(block(x), generator)
+            x = x + dropout(block(x), self.config.dropout, generator, self.training)
         logits = self.action_head(x)
         features = x.detach() if self.config.decouple_critic else x
         return logits, self.value_head(features)

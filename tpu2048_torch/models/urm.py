@@ -1,5 +1,6 @@
 """GameURM — the recurrent transformer actor-critic (counterpart of
-``tpu2048/models/urm.py``), forward in eval mode.
+``tpu2048/models/urm.py``: ``URMConfig``, ``init``, ``apply`` and
+``param_labels``).
 
 The 16 board cells are tokens. A stem (Linear(3->h, no bias) + LayerNorm +
 SiLU) embeds each cell's (exponent, row/3, col/3); the hidden state starts
@@ -7,14 +8,16 @@ from the learned ``init_hidden`` and, for ``num_loops`` recurrent loops,
 gets the embeddings added and runs the stack of blocks (non-causal
 multi-head attention, then a SwiGLU with a depthwise short conv, each
 followed by a post-add parameter-free RMSNorm). The first
-``num_truncated_loops`` run without gradient. The mean over the cells feeds
-the action head (4 logits) and the value head.
+``num_truncated_loops`` run without gradient (truncated backprop). The mean
+over the cells feeds the action head (4 logits) and the value head.
 
 Parameters carry the JAX tree's names (``blocks.0.qkv.w``, ``init_hidden``
 of shape (1, 16, h), ``blocks.0.dwconv.w`` of shape (inter, k)), so
 ``train.checkpoint.state_dict_from_arrays`` carries a checkpoint across
-unchanged. Dropout is kept for parity of the configuration; it is inactive
-in eval mode, the only mode ported so far.
+unchanged. A fresh model is initialised as ``urm.init`` does it, from the
+caller's generator, with both heads zeroed. In train mode, dropout acts on
+the post-softmax attention weights with masks from the generator passed to
+``forward``; in eval mode it is a no-op.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import NUM_ACTIONS, NUM_CELLS
-from .layers import LayerNorm, Linear, rms_norm
+from .initializers import conv1d_depthwise_default_init, truncated_normal, zero_head
+from .layers import LayerNorm, Linear, dropout, rms_norm
+
+INIT_HIDDEN_STD = 0.02
 
 
 @dataclass(frozen=True)
@@ -66,36 +72,50 @@ class URMConfig:
 
 
 class DepthwiseConv1d(nn.Module):
-    """Weights of the depthwise conv: ``w`` (channels, k) and bias ``b``."""
+    """Weights of the depthwise conv: ``w`` (channels, k) and bias ``b``,
+    initialised as torch's Conv1d (``conv1d_depthwise_default_init``)."""
 
-    def __init__(self, channels: int, k: int):
+    def __init__(self, channels: int, k: int, generator: torch.Generator | None = None):
         super().__init__()
-        self.w = nn.Parameter(torch.zeros(channels, k))
-        self.b = nn.Parameter(torch.zeros(channels))
+        p = conv1d_depthwise_default_init(channels, k, generator)
+        self.w = nn.Parameter(p["w"])
+        self.b = nn.Parameter(p["b"])
 
 
 class GameURM(nn.Module):
-    """inputs (B, 48) -> (action_logits (B, 4), value (B, 1))."""
+    """inputs (B, 48) -> (action_logits (B, 4), value (B, 1)).
 
-    def __init__(self, config: URMConfig):
+    Weights are drawn from ``generator`` in the JAX ``init``'s order (each
+    block's qkv, o, gate_up, dwconv and down; the stem; ``init_hidden``; the
+    action and value heads); ``zero_heads`` then zeroes both heads."""
+
+    def __init__(self, config: URMConfig, zero_heads: bool = True,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.config = config
         h, inter = config.hidden_dim, config.inter
-        self.stem = nn.ModuleDict({"lin": Linear(3, h, bias=False),
-                                   "ln": LayerNorm(h)})
-        self.blocks = nn.ModuleList(nn.ModuleDict({
-            "qkv": Linear(h, 3 * h, bias=False),
-            "o": Linear(h, h, bias=False),
-            "gate_up": Linear(h, 2 * inter, bias=False),
-            "dwconv": DepthwiseConv1d(inter, config.conv_kernel),
-            "down": Linear(inter, h, bias=False),
+        blocks = nn.ModuleList(nn.ModuleDict({
+            "qkv": Linear(h, 3 * h, bias=False, generator=generator),
+            "o": Linear(h, h, bias=False, generator=generator),
+            "gate_up": Linear(h, 2 * inter, bias=False, generator=generator),
+            "dwconv": DepthwiseConv1d(inter, config.conv_kernel, generator),
+            "down": Linear(inter, h, bias=False, generator=generator),
         }) for _ in range(config.num_layers))
-        self.init_hidden = nn.Parameter(torch.zeros(1, NUM_CELLS, h))
-        self.action_head = Linear(h, NUM_ACTIONS)
-        self.value_head = Linear(h, 1)
-        self.dropout = nn.Dropout(config.dropout)
+        self.stem = nn.ModuleDict({"lin": Linear(3, h, bias=False, generator=generator),
+                                   "ln": LayerNorm(h)})
+        self.blocks = blocks
+        self.init_hidden = nn.Parameter(INIT_HIDDEN_STD * truncated_normal(
+            (1, NUM_CELLS, h), -100.0, 100.0, generator))
+        self.action_head = Linear(h, NUM_ACTIONS, generator=generator)
+        self.value_head = Linear(h, 1, generator=generator)
+        if zero_heads:
+            with torch.no_grad():
+                for head in (self.action_head, self.value_head):
+                    for name, value in zero_head(dict(head.named_parameters())).items():
+                        getattr(head, name).copy_(value)
 
-    def _attention(self, p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+    def _attention(self, p: nn.ModuleDict, x: torch.Tensor,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
         """Non-causal multi-head attention over the 16 cells; dropout acts on
         the post-softmax weights."""
         b, length, h = x.shape
@@ -104,7 +124,8 @@ class GameURM(nn.Module):
         qkv = p["qkv"](x).reshape(b, length, 3, nh, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, nh, L, hd)
         attn = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        w = self.dropout(torch.softmax(attn, dim=-1))
+        w = dropout(torch.softmax(attn, dim=-1), self.config.dropout, generator,
+                    self.training)
         out = torch.matmul(w, v).transpose(1, 2).reshape(b, length, h)
         return p["o"](out)
 
@@ -125,18 +146,20 @@ class GameURM(nn.Module):
         conv = conv[:, :length] + p["dwconv"].b
         return p["down"](F.silu(conv))
 
-    def _block(self, p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, p: nn.ModuleDict, x: torch.Tensor,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         eps = self.config.rms_norm_eps
-        x = rms_norm(x + self._attention(p, x), eps)
+        x = rms_norm(x + self._attention(p, x, generator), eps)
         return rms_norm(x + self._conv_swiglu(p, x), eps)
 
-    def _loop(self, hidden: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _loop(self, hidden: torch.Tensor, emb: torch.Tensor, generator) -> torch.Tensor:
         hidden = hidden + emb
         for p in self.blocks:
-            hidden = self._block(p, hidden)
+            hidden = self._block(p, hidden, generator)
         return hidden
 
-    def forward(self, inputs: torch.Tensor) -> tuple:
+    def forward(self, inputs: torch.Tensor,
+                generator: torch.Generator | None = None) -> tuple:
         if inputs.dim() == 1:
             inputs = inputs[None]
         b = inputs.shape[0]
@@ -146,8 +169,19 @@ class GameURM(nn.Module):
         truncated = self.config.num_truncated_loops
         with torch.no_grad():
             for _ in range(truncated):
-                hidden = self._loop(hidden, emb)
+                hidden = self._loop(hidden, emb, generator)
         for _ in range(self.config.num_loops - truncated):
-            hidden = self._loop(hidden, emb)
+            hidden = self._loop(hidden, emb, generator)
         pooled = hidden.mean(1)
         return self.action_head(pooled), self.value_head(pooled)
+
+
+def param_labels(model: nn.Module) -> dict:
+    """Optimizer routing labels by parameter name, as
+    ``tpu2048/models/urm.py::param_labels`` gives them: {muon|adamw} x
+    {value|other}. Strictly 2-D weights (the depthwise conv's (inter, k)
+    included) go to Muon; the 3-D ``init_hidden``, the biases and the norms
+    to AdamW; the value head has its own learning rate."""
+    return {name: ("muon" if p.dim() == 2 else "adamw")
+            + ("_value" if name.startswith("value_head") else "_other")
+            for name, p in model.named_parameters()}

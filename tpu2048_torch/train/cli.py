@@ -1,8 +1,11 @@
-"""CLI of the port: ``train`` (the packed MLP trainer) and ``evaluate``.
+"""CLI of the port: ``train`` (the single-device PPO trainer, MLP or URM,
+exact-episodes or packed) and ``evaluate``.
 
     python -m tpu2048_torch.train.cli train --packed --lanes 512 \
-        --horizon 256 --batch-size 4096 ... --no-packed-capture \
+        --horizon 256 --batch-size 4096 ... [--viz-dir DIR] \
         [--resume] [--device cuda|cpu]
+    python -m tpu2048_torch.train.cli train --episodes 512 \
+        --batch-size 4096 -H 196 ... [--resume] [--device cuda|cpu]
     python -m tpu2048_torch.train.cli evaluate <checkpoint dir> --games N \
         [--greedy] [--seed S] [--env-seed S] [--device cuda|cpu] \
         [--search [--search-depth 1|2|3] [--search-prune K] [--search-bf16]]
@@ -81,21 +84,22 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     add("--no-kl-diagnostic", dest="kl_diagnostic", action="store_false",
         help="Skip the per-minibatch KL(old||new) extra forward")
     add("--scan-cap", dest="scan_cap", type=int, default=4096,
-        help="Most moves of an eval-in-train game")
+        help="Episode-length capacity: the most moves of an exact-mode or "
+             "eval-in-train game, and the packed recorder's episode buffer")
     add("--packed", action="store_true",
         help="Packed (auto-reset) rollout: persistent lanes advance a fixed "
              "number of steps per train step, finished games reset in place "
-             "and episodes cut at the chunk boundary are value-bootstrapped "
-             "(the one trainer ported; a run without it raises)")
+             "and episodes cut at the chunk boundary are value-bootstrapped; "
+             "without it, each step plays --episodes games to their ends")
     add("--lanes", type=int, default=0,
         help="Packed mode: number of persistent env lanes (0 -> --episodes)")
     add("--horizon", type=int, default=512,
         help="Packed mode: env steps per lane per train step")
     add("--no-packed-capture", dest="packed_capture", action="store_false",
         default=True,
-        help="Packed mode: no best-episode recorder. Required here: the "
-             "recorder (on by default, as in the JAX package) is not yet "
-             "ported")
+        help="Packed mode: no best-episode recorder (algo/capture.py), "
+             "which feeds the breakdown and the viz JSON; saves lanes x "
+             "scan-cap x 41 B of device memory")
     add("--checkpoint-freq", dest="checkpoint_freq", type=int, default=None)
     add("--mesh-data", dest="mesh_data", type=int, default=1,
         help="Data-parallel mesh size (> 1 is not yet ported)")

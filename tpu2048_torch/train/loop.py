@@ -1,32 +1,40 @@
-"""The packed PPO trainer for the MLP (counterpart of the single-device packed
-path of ``tpu2048/train/loop.py``).
+"""The single-device PPO trainer (counterpart of the single-device path of
+``tpu2048/train/loop.py``), for the MLP and the URM.
 
 One train step:
 
-  1. ``rollout_packed``: every lane advances ``horizon`` steps (two merge
-     launches a step), finished games reset in place;
+  1. the rollout: ``rollout_packed`` (``--packed``: every lane advances
+     ``horizon`` steps, two merge launches a step, finished games reset in
+     place, the best completed episode recorded on the device unless
+     ``--no-packed-capture``) or the exact-episodes ``rollout`` (the
+     default: ``--episodes`` games from fresh boards, each to its end or
+     ``rollout_cap`` moves, one merge launch a step);
   2. ``process``: returns-to-go and advantage, the augmentation plan, the
      PPO minibatches with a Muon+AdamW step each, the batch statistics,
      stacked into one tensor that the host reads once.
 
-plus eval-in-train (sampled games on a seeded spawn stream, ``best_model``
-saved on a new best), full train-state checkpoints with the lanes' state
-(``env_carry.npz``), adaptive entropy, EMAs and the metric log, as the
-reference does them.
+plus the episode breakdown and last steps at print cadence and the viz JSON
+(``--viz-dir``) at print cadence and on a new high, from the step's best
+episode (exact mode) or the recorder's (packed mode); eval-in-train (sampled
+games on a seeded spawn stream, ``best_model`` saved on a new best); full
+train-state checkpoints with the lanes' state and the recorder's best
+episode (``env_carry.npz``); adaptive entropy, EMAs and the metric log, as
+the reference does them.
 
 Randomness. JAX keys cannot be carried into ``torch.Generator``s, so the
 port seeds its generators from the same uint32 data the JAX package stores:
 ``train_state.npz['key']`` (2,) and ``env_carry.npz['env_key_data']`` (2,).
-Train step t's action, augmentation, permutation, dropout and eval
-generators are seeded from ``np.random.SeedSequence((*key, t, stream))``,
-the lanes' spawns and resets from ``SeedSequence((*env_key_data, t))``. Both
-stay constant through a run, so a run interrupted and resumed is
-bit-identical on the CPU to one that was not, and a train state the JAX
-package wrote resumes here. The streams themselves differ from the JAX
-package's.
+Train step t's generators are seeded from ``np.random.SeedSequence((*key,
+t, stream))`` for the streams ACTION, AUGMENT, PERMUTE, DROPOUT, EVAL and
+EXACT_ENV (the exact rollout's fresh boards and spawns); the packed lanes'
+spawns and resets from ``SeedSequence((*env_key_data, t))``. Both stay
+constant through a run, so a run interrupted and resumed is bit-identical
+on the CPU to one that was not, and a train state the JAX package wrote
+resumes here. The streams themselves differ from the JAX package's.
 
-Only the packed MLP trainer is ported; a configuration that needs anything
-else raises ``NotImplementedError`` (:func:`check_ported`).
+Expert iteration, ``--anchor-kl``, the mesh, ``--export-demo`` and wandb are
+not ported; a configuration that asks for one raises
+``NotImplementedError`` (:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -41,13 +49,15 @@ import torch
 from .. import resolve_device
 from ..algo import advantage as A
 from ..algo import augment as AUG
+from ..algo import capture as CAPT
 from ..algo import rollout as R
 from ..algo import update as U
-from ..env import engine
+from ..env import engine, heuristics
+from ..models import mlp, urm
 from ..models.encoding import encode_boards
-from ..models.mlp import GameMLP, MLPConfig, param_labels
 from ..ops import optimizer as opt
 from ..ops import schedules
+from ..utils import printing, viz_export
 from ..utils import stats as S
 from ..utils.logger import MetricLogger
 from . import checkpoint as CKPT
@@ -158,17 +168,11 @@ def check_ported(cfg: TrainConfig) -> None:
     if cfg.model_type.lower() not in ("mlp", "urm"):
         raise ValueError(f"Unknown model type: {cfg.model_type}. Use 'mlp' or 'urm'.")
     unported = [flag for flag, on in (
-        ("-t/--model-type urm", cfg.model_type.lower() == "urm"),
-        ("a run without --packed (the exact-episodes trainer)", not cfg.packed),
         ("--expert-iter", cfg.expert_iter),
         ("--anchor-kl > 0", cfg.anchor_kl > 0),
         ("--mesh-data > 1", cfg.mesh_data > 1),
-        ("--viz-dir", cfg.viz_dir is not None),
         ("--export-demo", cfg.export_demo),
         ("--wandb", cfg.use_wandb),
-        ("--show-last-steps > 0", cfg.show_last_steps > 0),
-        ("packed capture (on by default; pass --no-packed-capture)",
-         cfg.packed and cfg.packed_capture),
     ) if on]
     if unported:
         raise NotImplementedError(
@@ -176,7 +180,8 @@ def check_ported(cfg: TrainConfig) -> None:
 
 
 # Streams of a train step's generators: SeedSequence((*key, step, stream)).
-ACTION, AUGMENT, PERMUTE, DROPOUT, EVAL = range(5)
+# A new stream takes the next number; none is renumbered.
+ACTION, AUGMENT, PERMUTE, DROPOUT, EVAL, EXACT_ENV = range(6)
 # Run-level streams: SeedSequence((*key, stream)).
 INIT, ENV_KEY = range(2)
 
@@ -192,11 +197,19 @@ def make_generator(device, *words) -> torch.Generator:
 
 
 def build_model(cfg: TrainConfig, generator: torch.Generator | None = None) -> tuple:
-    """(model config, GameMLP on the CPU with zeroed heads, routing labels)."""
-    mc = MLPConfig(hidden_dim=cfg.hidden_size, num_layers=cfg.num_layers,
-                   dropout=cfg.dropout, decouple_critic=cfg.decouple_critic)
-    model = GameMLP(mc, zero_heads=True, generator=generator)
-    return mc, model, param_labels(model)
+    """(model config, GameMLP or GameURM on the CPU with zeroed heads,
+    routing labels)."""
+    if cfg.model_type.lower() == "urm":
+        mc = urm.URMConfig(hidden_dim=cfg.hidden_size, num_layers=cfg.num_layers,
+                           num_heads=cfg.num_heads, dropout=cfg.dropout,
+                           num_loops=cfg.num_loops,
+                           num_truncated_loops=cfg.num_truncated_loops)
+        model = urm.GameURM(mc, zero_heads=True, generator=generator)
+        return mc, model, urm.param_labels(model)
+    mc = mlp.MLPConfig(hidden_dim=cfg.hidden_size, num_layers=cfg.num_layers,
+                       dropout=cfg.dropout, decouple_critic=cfg.decouple_critic)
+    model = mlp.GameMLP(mc, zero_heads=True, generator=generator)
+    return mc, model, mlp.param_labels(model)
 
 
 _EXTRA_SCALARS = ("sched_mult", "batch_max_score", "batch_avg_score",
@@ -208,26 +221,34 @@ SCALAR_KEYS = tuple(sorted(
 def make_process_fn(cfg: TrainConfig, optimize_fn):
     """``process(opt_state, traj, moments, train_step, beta, *, generators=,
     aug_plan=None, perm_draws=None) -> (new_moments, outputs)``: advantage,
-    augmentation plan, the learner's epochs and the statistics of one packed
-    chunk. ``train_step`` is 1-indexed; ``outputs['scalars']`` stacks every
-    scalar in ``SCALAR_KEYS`` order (one host transfer). ``generators``
-    maps AUGMENT/PERMUTE/DROPOUT to the step's generators; ``aug_plan`` and
-    ``perm_draws`` replace their draws (a test replays the JAX package's)."""
-    T, N = cfg.horizon, cfg.packed_lanes
+    augmentation plan, the learner's epochs and the statistics of one
+    rollout, a PackedTrajectory when ``cfg.packed``, else a Trajectory of
+    (rollout_cap, num_episodes) records. ``train_step`` is 1-indexed;
+    ``outputs['scalars']`` stacks every scalar in ``SCALAR_KEYS`` order (one
+    host transfer). ``generators`` maps AUGMENT/PERMUTE/DROPOUT to the
+    step's generators; ``aug_plan`` and ``perm_draws`` replace their draws (a
+    test replays the JAX package's)."""
+    packed = cfg.packed
+    T, N = (cfg.horizon, cfg.packed_lanes) if packed else (cfg.rollout_cap,
+                                                           cfg.num_episodes)
     num_slots = int(np.ceil(T * N * cfg.upsample_ratio)) if cfg.upsample_ratio > 0 else 0
     weights = cfg.reward_weights
 
-    def process(opt_state, traj: R.PackedTrajectory, moments, train_step: int,
-                beta: float, *, generators: dict | None = None,
-                aug_plan: AUG.AugPlan | None = None, perm_draws=None) -> tuple:
+    def process(opt_state, traj, moments, train_step: int, beta: float, *,
+                generators: dict | None = None, aug_plan: AUG.AugPlan | None = None,
+                perm_draws=None) -> tuple:
         generators = generators or {}
         device = traj.valid.device
         sched_mult = schedules.cosine_with_warmup(train_step - 1, cfg.warmup_steps,
                                                   cfg.steps)
-        adv = A.compute_packed(
-            traj.points, traj.mono_before, traj.mono_after, traj.empt_before,
-            traj.empt_after, traj.value_pred, traj.valid, traj.done_here,
-            traj.boot_value, weights, cfg.gamma, moments, cfg.rtg_beta, train_step)
+        potentials = (traj.points, traj.mono_before, traj.mono_after, traj.empt_before,
+                      traj.empt_after, traj.value_pred, traj.valid)
+        if packed:
+            adv = A.compute_packed(*potentials, traj.done_here, traj.boot_value, weights,
+                                   cfg.gamma, moments, cfg.rtg_beta, train_step)
+        else:
+            adv = A.compute(*potentials, weights, cfg.gamma, moments, cfg.rtg_beta,
+                            train_step)
         s_real = T * N
         flat_valid = traj.valid.reshape(s_real)
 
@@ -261,28 +282,179 @@ def make_process_fn(cfg: TrainConfig, optimize_fn):
                              dropout_generator=generators.get(DROPOUT),
                              perm_draws=perm_draws)
 
-        flat_done = traj.done_here.reshape(-1)
-        scalars = S.device_stats(traj, adv, aug_valid, aug_points,
-                                 traj.ep_score.reshape(-1), flat_done,
-                                 traj.ep_start.reshape(-1))
+        if packed:
+            # Episode statistics over the chunk's completion records.
+            flat_done = traj.done_here.reshape(-1)
+            scalars = S.device_stats(traj, adv, aug_valid, aug_points,
+                                     traj.ep_score.reshape(-1), flat_done,
+                                     traj.ep_start.reshape(-1))
+            n_ep = flat_done.to(torch.float32).sum().clamp(min=1.0)
+            tiles, score_sum = traj.ep_tile, traj.ep_score.to(torch.float32).sum()
+            max_score = traj.ep_score.max()
+            # A packed chunk has no per-lane best episode (it lives
+            # mid-buffer): the recorder keeps it.
+            best_idx = torch.zeros((), device=device)
+        else:
+            scalars = S.device_stats(traj, adv, aug_valid, aug_points)
+            n_ep = torch.full((), float(N), device=device)
+            tiles = engine.max_tile_value(traj.final_board.to(torch.int32))
+            score_sum = traj.total_points.sum().to(torch.float32)
+            max_score = traj.total_points.max()
+            best_idx = heuristics.first_max_index(traj.total_points)
         scalars.update(ostats._asdict())
-        n_done = flat_done.to(torch.float32).sum().clamp(min=1.0)
 
         def pct(tile):
-            return (traj.ep_tile >= tile).sum() / n_done * 100.0
+            return (tiles >= tile).sum() / n_ep * 100.0
 
         scalars.update(
             sched_mult=torch.full((), float(sched_mult), device=device),
-            batch_max_score=traj.ep_score.max(),
-            batch_avg_score=traj.ep_score.to(torch.float32).sum() / n_done,
+            batch_max_score=max_score, batch_avg_score=score_sum / n_ep,
             pct_512=pct(512), pct_1024=pct(1024), pct_2048=pct(2048),
-            # A packed chunk has no per-lane best episode (it lives mid-buffer).
-            best_idx=torch.zeros((), device=device),
-            env_steps=traj.valid.sum())
+            best_idx=best_idx,
+            env_steps=traj.valid.sum() if packed else traj.num_moves.sum())
         stacked = torch.stack([scalars[k].to(torch.float32) for k in SCALAR_KEYS])
         return adv["new_moments"], dict(scalars=stacked, advantage=adv["advantage"])
 
     return process
+
+
+_DELTA_OF = ("smoothness", "corner", "adjacency", "chain", "topological")
+HEURISTIC_DELTAS = tuple(f"{k}_delta" for k in _DELTA_OF)
+
+
+def _moved(boards: torch.Tensor, action: torch.Tensor) -> tuple:
+    """(the boards after each move, before its spawn; the MoveSet)."""
+    moves = engine.all_moves(boards)
+    sel = action.long()[None, :, None, None].expand((1,) + boards.shape)
+    return torch.gather(moves.boards, 0, sel)[0], moves
+
+
+def make_episode_heuristics_fn():
+    """``fn(board_before (T, 4, 4), action (T,)) -> dict`` of the five
+    heuristic deltas (after the move, before its spawn, minus before; the
+    topological score anchored at the before-board's corner) that the
+    breakdown and the viz JSON read. One merge launch over the T boards."""
+
+    def fn(board_before, action):
+        b = board_before.to(torch.int32)
+        anchor = heuristics.choose_anchor_corner(b)
+        before = heuristics.full_suite(b, anchor)
+        after = heuristics.full_suite(_moved(b, action)[0], anchor)
+        return {f"{k}_delta": after[k] - before[k] for k in _DELTA_OF}
+
+    return fn
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+def _episode_moves(n, action, board_before, board_after, points, entropy, advantage,
+                   max_created, mono_b, mono_a, empt_b, empt_a, heur) -> list:
+    """The per-move dicts of an episode (the reference's EpisodeData)."""
+    moves = []
+    for t in range(n):
+        m = {
+            "selected_direction": int(action[t]),
+            "state_before": board_before[t].tolist(),
+            "result_state": board_after[t].tolist(),
+            "points_earned": int(points[t]),
+            "entropy": float(entropy[t]),
+            "advantage": float(advantage[t]),
+            "max_tile_created": int(max_created[t]),
+            "monotonicity_before": float(mono_b[t]),
+            "monotonicity_after": float(mono_a[t]),
+            "emptiness_before": float(empt_b[t]),
+            "emptiness_after": float(empt_a[t]),
+        }
+        if heur is not None:
+            for k in HEURISTIC_DELTAS:
+                m[k] = float(heur[k][t])
+        moves.append(m)
+    return moves
+
+
+def fetch_episode(traj: R.Trajectory, advantage_tn, idx: int, heur_fn=None) -> dict:
+    """Lane ``idx``'s episode of an exact-mode rollout as the host-side dict
+    the printers and the viz exporter read."""
+    n = int(traj.num_moves[idx])
+
+    def lane(x):
+        return _host(x[:n, idx])
+
+    heur = None
+    if heur_fn is not None:
+        heur = {k: _host(v) for k, v in heur_fn(traj.board_before[:n, idx],
+                                                traj.action[:n, idx]).items()}
+    advantage = lane(advantage_tn) if advantage_tn is not None else np.zeros(n)
+    moves = _episode_moves(
+        n, lane(traj.action).astype(int), lane(traj.board_before).astype(int),
+        lane(traj.board_after).astype(int), lane(traj.points).astype(int),
+        lane(traj.entropy), advantage, lane(traj.max_created).astype(int),
+        lane(traj.mono_before), lane(traj.mono_after), lane(traj.empt_before),
+        lane(traj.empt_after), heur)
+    return {
+        "moves": moves,
+        "total_points": int(traj.total_points[idx]),
+        "total_steps": int(traj.total_steps[idx]),
+        "final_state": _host(traj.final_board[idx]).astype(int).tolist(),
+    }
+
+
+def make_packed_mono_fn():
+    """``fn(board_before (T, 4, 4), action (T,)) -> (mono_before, mono_after,
+    empt_before, empt_after, max_created)`` of a recorded packed episode,
+    which keeps only boards, actions, points and entropy: the two live
+    potentials before the move and after it (before its spawn), and the
+    move's largest created exponent. One merge launch over the T boards."""
+
+    def fn(board_before, action):
+        b = board_before.to(torch.int32)
+        moved, moves = _moved(b, action)
+        maxc = torch.gather(moves.max_created, 0, action.long()[None])[0]
+        return (heuristics.monotonicity(b), heuristics.monotonicity(moved),
+                heuristics.emptiness(b), heuristics.emptiness(moved), maxc)
+
+    return fn
+
+
+def fetch_packed_episode(rec: CAPT.EpisodeRecorder, heur_fn=None,
+                         mono_fn=None) -> Optional[dict]:
+    """The recorder's committed episode as the dict :func:`fetch_episode`
+    gives, or None before an episode has completed. The reference's
+    accounting: the advantage is 0.0 (the episode spans many chunks),
+    ``total_steps`` is the true length - 1, the last move's after-potentials
+    are zeroed only when the episode was not truncated, and
+    ``truncated_at`` marks a truncated one."""
+    n = int(rec.best_len)
+    if n == 0:
+        return None
+    true_len = int(rec.best_true_len)
+    before, action = rec.best_before[:n], rec.best_action[:n]
+    zeros = np.zeros(n)
+    mono_b = mono_a = empt_b = empt_a = maxc = zeros
+    if mono_fn is not None:
+        mono_b, mono_a, empt_b, empt_a, maxc = (_host(x) for x in mono_fn(before, action))
+        if true_len == n:  # untruncated: the last move is terminal
+            mono_a[-1] = 0
+            empt_a[-1] = 0
+    heur = None
+    if heur_fn is not None:
+        heur = {k: _host(v) for k, v in heur_fn(before, action).items()}
+    board_after = _host(rec.best_after[:n]).astype(int)
+    moves = _episode_moves(
+        n, _host(action).astype(int), _host(before).astype(int), board_after,
+        _host(rec.best_points[:n]).astype(int), _host(rec.best_entropy[:n]), zeros,
+        maxc.astype(int), mono_b, mono_a, empt_b, empt_a, heur)
+    ep = {
+        "moves": moves,
+        "total_points": int(rec.best_score),
+        "total_steps": true_len - 1,
+        "final_state": board_after[-1].tolist(),
+    }
+    if true_len > n:
+        ep["truncated_at"] = n  # the recorder's cap; prefix and last move exact
+    return ep
 
 
 EVAL_KEYS = ("avg_score", "max_score", "median_score", "pct_1024", "pct_2048",
@@ -354,58 +526,75 @@ def load_train_state(ckpt_dir, model, device) -> tuple:
 
 
 _CARRY_FIELDS = ("boards", "env_key_data", "ep_points", "ep_moves")
+_BEST_DTYPES = dict(best_before=torch.int8, best_after=torch.int8,
+                    best_action=torch.int8, best_points=torch.int32,
+                    best_entropy=torch.float32, best_score=torch.int32,
+                    best_len=torch.int32, best_true_len=torch.int32)
 
 
-def save_env_carry(ckpt_dir, carry: R.EnvCarry, step: int, lanes: int) -> None:
+def save_env_carry(ckpt_dir, carry: R.EnvCarry, recorder: CAPT.EpisodeRecorder | None,
+                   step: int, lanes: int) -> None:
     """The lanes' state as ``env_carry.npz``, beside ``train_state.npz``, so a
-    resumed run goes on from the same boards. The port has no best-episode
-    recorder, so no recorder fields are written (``has_recorder: false``)."""
-    leaves = {"['boards']": carry.boards.cpu().numpy(),
+    resumed run goes on from the same boards, with the recorder's committed
+    episode (its ``best_*`` fields; the lane buffers are not kept, and
+    :func:`CAPT.mark_resumed` covers them on restore)."""
+    leaves = {"['boards']": _host(carry.boards),
               "['env_key_data']": np.asarray(carry.env_key, np.uint32),
-              "['ep_points']": carry.ep_points.cpu().numpy(),
-              "['ep_moves']": carry.ep_moves.cpu().numpy()}
+              "['ep_points']": _host(carry.ep_points),
+              "['ep_moves']": _host(carry.ep_moves)}
+    if recorder is not None:
+        leaves.update({f"['{k}']": _host(getattr(recorder, k)) for k in CAPT.BEST_FIELDS})
     CKPT.save_checkpoint(ckpt_dir, "env_carry", leaves=leaves,
                          manifest=dict(train_step=step, lanes=lanes, sharded_d=1,
-                                       has_recorder=False))
+                                       has_recorder=recorder is not None))
 
 
-def load_env_carry(ckpt_dir, lanes: int, device, logger) -> Optional[R.EnvCarry]:
-    """The lanes' state saved by :func:`save_env_carry` (or by the JAX
-    package, whose recorder fields are ignored), or None when there is none
-    or it does not fit (another lane count or mesh layout, unreadable); the
-    caller then keeps its fresh boards."""
+def load_env_carry(ckpt_dir, lanes: int, cap: int, device, logger) -> tuple:
+    """(EnvCarry, the recorder's ``best_*`` fields or None) saved by
+    :func:`save_env_carry` or by the JAX package; (None, None) when there is
+    none or it does not fit (another lane count or mesh layout,
+    unreadable), and the caller then keeps its fresh boards. The best
+    episode is restored when the file has one of ``cap`` moves."""
     if not CKPT.checkpoint_exists(ckpt_dir, "env_carry"):
-        return None
+        return None, None
     try:
         arrays, manifest = CKPT.load_checkpoint(ckpt_dir, "env_carry")
         fields = {f: arrays[f"['{f}']"] for f in _CARRY_FIELDS}
     except (CKPT.CheckpointCorruptError, KeyError, ValueError) as e:
         logger.print(f"env_carry checkpoint unreadable ({e}); starting from fresh boards")
-        return None
+        return None, None
     if manifest.get("lanes") != lanes:
         logger.print(f"env_carry checkpoint is for {manifest.get('lanes')} lanes, "
                      f"run uses {lanes}: starting from fresh boards")
-        return None
+        return None, None
     if manifest.get("sharded_d", 1) != 1:
         logger.print("env_carry checkpoint mesh layout changed "
                      f"({manifest.get('sharded_d')} -> 1): starting from fresh boards")
-        return None
+        return None, None
 
-    def put(x):
-        return torch.as_tensor(np.asarray(x, np.int32)).to(device)
+    def put(x, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
-    return R.EnvCarry(put(fields["boards"]), np.asarray(fields["env_key_data"], np.uint32),
-                      put(fields["ep_points"]), put(fields["ep_moves"]))
+    carry = R.EnvCarry(put(fields["boards"]), np.asarray(fields["env_key_data"], np.uint32),
+                       put(fields["ep_points"]), put(fields["ep_moves"]))
+    best = None
+    if (manifest.get("has_recorder") and "['best_action']" in arrays
+            and arrays["['best_action']"].shape[0] == cap):
+        best = {k: put(arrays[f"['{k}']"], dtype) for k, dtype in _BEST_DTYPES.items()}
+    return carry, best
 
 
 def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> dict:
-    """Run the packed trainer; returns a summary dict.
+    """Run the trainer; returns a summary dict.
 
     ``on_step``, when given, is called after every train step with a dict:
     ``step`` (0-indexed), ``model``, ``opt_state``, ``moments``, ``traj``,
-    ``scalars`` (by SCALAR_KEYS), ``rollout_s`` (host seconds to run the
-    rollout), ``learner_s`` (host seconds from there to the scalars on the
-    host). The run's own work does not depend on it."""
+    ``carry_in`` (the packed lanes' state before the step, else None),
+    ``recorder`` (the packed recorder after the step, else None; its lane
+    buffers are written in place by the next step), ``scalars`` (by
+    SCALAR_KEYS), ``rollout_s`` (host seconds to run the rollout),
+    ``learner_s`` (host seconds from there to the scalars on the host). The
+    run's own work does not depend on it."""
     check_ported(cfg)
     device = resolve_device(cfg.device)
     logger = MetricLogger(cfg.log_dir, experiment_name=f"train_{cfg.model_type}")
@@ -426,6 +615,7 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
     emas = dict(avg_score=0.0, pct_512=0.0, pct_1024=0.0, pct_2048=0.0,
                 explained_var=0.0)
     current_beta = cfg.entropy_strength
+    best_game_episode = None
     if cfg.resume and cfg.checkpoint_dir and CKPT.checkpoint_exists(
             cfg.checkpoint_dir, "train_state"):
         opt_state, moments, key, manifest = load_train_state(cfg.checkpoint_dir, model, device)
@@ -437,21 +627,35 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
         logger.print(f"Resumed from step {start_step}")
 
     lanes = cfg.packed_lanes
-    logger.print(f"Packed rollout: {lanes} auto-reset lanes x {cfg.horizon} "
-                 f"steps/train-step ({lanes * cfg.horizon} env steps/step, "
-                 "100% lane occupancy)")
-    env_key = np.random.SeedSequence((*map(int, key), ENV_KEY)).generate_state(2, np.uint32)
-    env_carry = R.init_env_carry(env_key, lanes, device, make_generator(device, *env_key))
-    if cfg.resume and cfg.checkpoint_dir:
-        restored = load_env_carry(cfg.checkpoint_dir, lanes, device, logger)
-        if restored is not None:
-            env_carry = restored
-            logger.print("Resumed packed env carry (lanes continue on-policy)")
+    env_carry = recorder = None
+    capture_on = cfg.packed and cfg.packed_capture
+    if cfg.packed:
+        logger.print(f"Packed rollout: {lanes} auto-reset lanes x {cfg.horizon} "
+                     f"steps/train-step ({lanes * cfg.horizon} env steps/step, "
+                     "100% lane occupancy)")
+        env_key = np.random.SeedSequence((*map(int, key), ENV_KEY)).generate_state(
+            2, np.uint32)
+        env_carry = R.init_env_carry(env_key, lanes, device,
+                                     make_generator(device, *env_key))
+        if capture_on:
+            recorder = CAPT.init_recorder(lanes, cfg.scan_cap, device)
+        if cfg.resume and cfg.checkpoint_dir:
+            restored, best = load_env_carry(cfg.checkpoint_dir, lanes, cfg.scan_cap,
+                                            device, logger)
+            if restored is not None:
+                env_carry = restored
+                logger.print("Resumed packed env carry (lanes continue on-policy)")
+                if capture_on:
+                    recorder = CAPT.mark_resumed(recorder, restored.ep_moves)
+            if best is not None and capture_on:
+                recorder = recorder._replace(**best)
 
     optimize_fn = U.make_optimize_fn(model, labels, opt_cfg, cfg.batch_size,
                                      cfg.ppo_epochs, kl_diagnostic=cfg.kl_diagnostic)
     process_fn = make_process_fn(cfg, optimize_fn)
     eval_fn = make_eval_fn(cfg) if cfg.eval_freq else None
+    heur_fn = make_episode_heuristics_fn()
+    mono_fn = make_packed_mono_fn() if capture_on else None
 
     # Sanity forward on a fresh board (the reference prints it).
     with torch.no_grad():
@@ -470,17 +674,27 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
                           best_eval_avg=float(best_eval_avg), emas=emas,
                           current_beta=float(current_beta), config=asdict(cfg),
                           model_config=model_cfg.to_dict()))
-        save_env_carry(cfg.checkpoint_dir, env_carry, step, lanes)
+        if cfg.packed:
+            save_env_carry(cfg.checkpoint_dir, env_carry, recorder, step, lanes)
 
     t_start = time.time()
     env_steps_total = 0
     for train_step in range(start_step, cfg.steps):
         t0 = time.perf_counter()
         env_carry_in = env_carry
-        traj, env_carry = R.rollout_packed(
-            model, env_carry_in, cfg.horizon,
-            action_generator=make_generator(device, *key, train_step, ACTION),
-            env_generator=make_generator(device, *env_carry_in.env_key, train_step))
+        if cfg.packed:
+            out = R.rollout_packed(
+                model, env_carry_in, cfg.horizon,
+                action_generator=make_generator(device, *key, train_step, ACTION),
+                env_generator=make_generator(device, *env_carry_in.env_key, train_step),
+                recorder=recorder)
+            traj, env_carry = out[:2]
+            recorder = out[2] if capture_on else None
+        else:
+            traj = R.rollout(
+                model, cfg.num_episodes, cfg.rollout_cap,
+                action_generator=make_generator(device, *key, train_step, ACTION),
+                env_generator=make_generator(device, *key, train_step, EXACT_ENV))
         t1 = time.perf_counter()
         gens = {s: make_generator(device, *key, train_step, s)
                 for s in (AUGMENT, PERMUTE, DROPOUT)}
@@ -494,6 +708,7 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
             entropy_error = cfg.target_entropy - sc["entropy"]
             current_beta = float(np.clip(current_beta * (1.0 + cfg.beta_lr * entropy_error),
                                          cfg.beta_min, cfg.beta_max))
+        new_high = int(sc["batch_max_score"]) > highest_score
         highest_score = max(int(sc["batch_max_score"]), highest_score)
         env_steps_total += int(sc["env_steps"])
         p512, p1024, p2048 = sc["pct_512"], sc["pct_1024"], sc["pct_2048"]
@@ -508,8 +723,32 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
             batch_pct_1024=p1024, batch_pct_2048=p2048,
             ema_explained_var=emas["explained_var"], current_beta=current_beta,
             lr=cfg.learning_rate * sc["sched_mult"])
-        logger.log(metrics, step=train_step,
-                   verbose=train_step % cfg.print_frequency == 0)
+        should_print = train_step % cfg.print_frequency == 0
+        logger.log(metrics, step=train_step, verbose=should_print)
+
+        # The best episode: the step's best lane (exact mode) or the
+        # recorder's committed episode (packed mode with capture).
+        fetchable = not cfg.packed or capture_on
+        if cfg.packed:
+            def fetch(heur=None):
+                return fetch_packed_episode(recorder, heur_fn=heur, mono_fn=mono_fn)
+        else:
+            def fetch(heur=None):
+                return fetch_episode(traj, out["advantage"], int(sc["best_idx"]),
+                                     heur_fn=heur)
+        if new_high and fetchable:
+            best_game_episode = fetch() or best_game_episode
+        if (should_print or (new_high and cfg.viz_dir)) and fetchable:
+            episode = fetch(heur_fn)
+            if episode is not None and should_print:
+                printing.print_episode_breakdown(logger, episode, cfg.reward_weights,
+                                                 cfg.gamma)
+                if cfg.show_last_steps > 0:
+                    printing.print_last_steps(logger, episode, cfg.show_last_steps)
+                printing.print_final_state(logger, episode)
+            if episode is not None and cfg.viz_dir:
+                viz_export.export_episode_visualization(
+                    cfg.viz_dir, train_step, episode, cfg.reward_weights, cfg.gamma)
 
         if eval_fn and train_step > 0 and train_step % cfg.eval_freq == 0:
             logger.print(f"[Step {train_step}] Evaluating model on {cfg.eval_games} games")
@@ -534,8 +773,9 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
             save_train_state(train_step)
         if on_step is not None:
             on_step(dict(step=train_step, model=model, opt_state=opt_state,
-                         moments=moments, traj=traj, scalars=sc,
-                         rollout_s=t1 - t0, learner_s=t2 - t1))
+                         moments=moments, traj=traj, carry_in=env_carry_in,
+                         recorder=recorder, scalars=sc, rollout_s=t1 - t0,
+                         learner_s=t2 - t1))
 
     elapsed = time.time() - t_start
     steps_run = cfg.steps - start_step
@@ -549,5 +789,6 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
         save_train_state(cfg.steps - 1)
     logger.close()
     return dict(model=model, moments=moments, highest_score=highest_score,
-                emas=emas, env_steps_total=env_steps_total, elapsed=elapsed,
+                best_game_episode=best_game_episode, recorder=recorder, emas=emas,
+                env_steps_total=env_steps_total, elapsed=elapsed,
                 best_eval_avg=best_eval_avg, current_beta=current_beta)

@@ -10,8 +10,9 @@ the reference's metric names, quirks included:
  * ``total_loss``/``actor_loss``/``critic_loss`` read keys the optimizer
    statistics never set, so they log as 0.
 
-Only the packed form of the episode statistics (completion records) is
-ported: the exact-episodes trainer is not.
+The episode statistics come from the lanes' summaries in exact-episodes
+mode (``total_points`` and ``valid[0]``) and from completion records in
+packed mode.
 """
 
 from __future__ import annotations
@@ -28,14 +29,17 @@ DSTAT_KEYS = (
 
 
 def device_stats(traj, adv: dict, aug_valid: torch.Tensor, aug_points: torch.Tensor,
-                 episode_scores: torch.Tensor, episode_mask: torch.Tensor,
-                 ep_start_mask: torch.Tensor) -> dict:
-    """0-d tensors keyed by ``DSTAT_KEYS``. ``traj``: a PackedTrajectory;
-    ``adv``: the dict of ``advantage.compute_packed``; ``aug_*``: the
-    augmented rows' validity and points; ``episode_scores``/``episode_mask``
-    (flat over the (T, N) grid): completion records; ``ep_start_mask``
-    (flat): the steps that began an episode, whose raw return is the
-    episode's G_0."""
+                 episode_scores: torch.Tensor | None = None,
+                 episode_mask: torch.Tensor | None = None,
+                 ep_start_mask: torch.Tensor | None = None) -> dict:
+    """0-d tensors keyed by ``DSTAT_KEYS``. ``traj``: a Trajectory or a
+    PackedTrajectory; ``adv``: the dict of ``advantage.compute`` or
+    ``compute_packed``; ``aug_*``: the augmented rows' validity and points.
+
+    Packed mode passes ``episode_scores``/``episode_mask`` (flat over the
+    (T, N) grid): completion records, in place of ``traj.total_points``;
+    and ``ep_start_mask`` (flat): the steps that began an episode, whose
+    raw return is the episode's G_0, in place of ``traj.valid[0]``."""
     w = traj.valid.to(torch.float32)
     n = w.sum().clamp(min=1.0)
 
@@ -53,17 +57,30 @@ def device_stats(traj, adv: dict, aug_valid: torch.Tensor, aug_points: torch.Ten
     # Episode scores, the augmented pseudo-episode among them. The median
     # sorts non-completions to +inf and indexes by the true count.
     aug_score = torch.where(aug_valid, aug_points, 0).sum()
-    smask = torch.cat([episode_mask, episode_mask.new_ones(1)])
-    scores = torch.cat([episode_scores, aug_score[None]]).to(torch.float32)
-    n_done = smask.to(torch.float32).sum().clamp(min=1.0)
-    avg_score = torch.where(smask, scores, 0.0).sum() / n_done
-    ordered = torch.sort(torch.where(smask, scores, float("inf"))).values
-    median = ordered[torch.clamp(n_done.to(torch.int64) // 2, max=ordered.shape[0] - 1)]
-    median_score = torch.where(torch.isfinite(median), median, 0.0)
+    if episode_scores is not None:
+        smask = torch.cat([episode_mask, episode_mask.new_ones(1)])
+        scores = torch.cat([episode_scores, aug_score[None]]).to(torch.float32)
+        n_done = smask.to(torch.float32).sum().clamp(min=1.0)
+        avg_score = torch.where(smask, scores, 0.0).sum() / n_done
+        ordered = torch.sort(torch.where(smask, scores, float("inf"))).values
+        median = ordered[torch.clamp(n_done.to(torch.int64) // 2,
+                                     max=ordered.shape[0] - 1)]
+        median_score = torch.where(torch.isfinite(median), median, 0.0)
+    else:
+        scores = torch.sort(torch.cat([traj.total_points, aug_score[None]])
+                            .to(torch.float32)).values
+        n_ep = scores.shape[0]
+        avg_score = scores.mean()
+        median_score = (scores[n_ep // 2] if n_ep % 2 == 1
+                        else (scores[n_ep // 2 - 1] + scores[n_ep // 2]) / 2.0)
 
-    g0 = ep_start_mask.to(torch.float32)
-    ep_returns = torch.where(ep_start_mask, adv["G_raw"].reshape(-1), 0.0)
-    avg_episode_return = ep_returns.sum() / g0.sum().clamp(min=1.0)
+    # G_0 of each episode: the raw return of its first move.
+    if ep_start_mask is not None:
+        starts, g_raw = ep_start_mask, adv["G_raw"].reshape(-1)
+    else:
+        starts, g_raw = traj.valid[0], adv["G_raw"][0]
+    ep_returns = torch.where(starts, g_raw, 0.0)
+    avg_episode_return = ep_returns.sum() / starts.to(torch.float32).sum().clamp(min=1.0)
 
     big = 1e30
     fnorm_std, adv_std = fnorm_var.sqrt(), adv_var.sqrt()
