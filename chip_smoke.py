@@ -69,12 +69,26 @@ raises and the run exits non-zero:
            games a step, cap 2048): the batch average and the eval of 256
            games above floors, env_steps the sum of the games' moves, the
            trips each step ran
+  train_expert  a copy of checkpoints_expF's train_state (the JAX run's
+           expert-iteration student, H=384x3, step 200) resumed for 2 steps
+           of scripts/train_expF_wide.sh (frozen depth-2 expA teacher, bf16
+           leaves, 32 games, 16 expert-driven), each rollout capped at
+           EXPERT_MAX_STEPS trips: the teacher's calibration printed, its
+           card scores of the first trips' boards == the CPU's, the labels
+           the CPU's argmax but for near-ties, the expert envs' moves, soft
+           targets that sum to 1, an imitation-sharp learner minibatch card
+           == CPU, the merge launches of each step (trips x the search's and
+           the step's, + 1), the recipe's 256-game eval above a floor
+  train_expert_live  checkpoints_expA's train_state resumed for 1 step of
+           scripts/train_expC_ei.sh (the live teacher) with --anchor-kl 0.5,
+           capped as above: the live coefs card == CPU, a learner minibatch
+           with the anchor card == CPU, the 256-game eval above a floor
   kernels  one JSON line per the port's kernels: check, launches (by
            phase), times (at the served batch, and per timed N with the
            launch floor and the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
-after the train_exact phase: they count the main path only. The last line is
+after the train_expert_live phase: they count the main path only. The last line is
 {"ok": true, "device": {...}}. Imports torch, numpy, the standard library and
 the port; never JAX and never the tpu2048 package.
 """
@@ -82,6 +96,8 @@ the port; never JAX and never the tpu2048 package.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import io
 import json
 import math
@@ -98,6 +114,7 @@ from tpu2048_torch.algo import advantage as A
 from tpu2048_torch.algo import augment as AUG
 from tpu2048_torch.algo import capture
 from tpu2048_torch.algo import update as U
+from tpu2048_torch.algo.search import NUM_SPAWNS, expectimax_scores
 from tpu2048_torch.env import engine
 from tpu2048_torch.models.encoding import encode_boards
 from tpu2048_torch.ops import merge
@@ -105,8 +122,8 @@ from tpu2048_torch.ops import optimizer as opt
 from tpu2048_torch.serve import PolicyService
 from tpu2048_torch.train import cli
 from tpu2048_torch.train import loop
-from tpu2048_torch.train.evaluate import (evaluate_checkpoint,
-                                          load_model_checkpoint, run_eval)
+from tpu2048_torch.train.evaluate import (evaluate_checkpoint, load_model_checkpoint,
+                                          load_search_coefs, run_eval)
 from tpu2048_torch.utils.profiling import device_ms
 
 ROOT = Path(__file__).resolve().parent
@@ -219,6 +236,46 @@ EXACT_STEPS = 20002
 # train_state.json).
 EXACT_MIN_BATCH_AVG = 5000
 EXACT_MIN_EVAL_AVG = 4500
+# scripts/train_expF_wide.sh: expert iteration, exact episodes (32 games, 16
+# of them expert-driven), the frozen depth-2 expA teacher with bf16 leaves.
+EXPERT_RECIPE = [
+    "--episodes", "32", "--batch-size", "4096", "--lr", "1e-3", "--critic-lr", "1e-3",
+    "-H", "384", "--num-layers", "3", "--gamma", "0.995", "--entropy", "0.001",
+    "--dropout", "0.0", "--points", "0.10", "--mono", "1.0", "--critic", "1.0",
+    "--rtg-beta", "0.9", "--warmup-steps", "20", "--upsample-ratio", "0.25", "-t", "mlp",
+    "--no-kl-diagnostic", "--expert-iter", "--expert-depth", "2", "--expert-mix", "0.5",
+    "--expert-bf16", "--expert-src", str(ROOT / "checkpoints_expA"), "--decouple-critic",
+    "--print-freq", "100", "--eval-freq", "25", "--eval-games", "256",
+    "--checkpoint-freq", "25", "--scan-cap", "2560"]
+# scripts/train_expC_ei.sh (the live teacher: the policy itself, coefs from
+# its moments) without --decouple-critic (expA's state has a shared trunk),
+# with scripts/train_expE_dagger.sh's --anchor-kl 0.5.
+EXPERT_LIVE_RECIPE = [
+    "--episodes", "32", "--batch-size", "4096", "--lr", "5e-5", "--critic-lr", "8e-4",
+    "-H", "196", "--gamma", "0.995", "--entropy", "0.001", "--points", "0.10", "--mono",
+    "1.0", "--critic", "1.0", "--rtg-beta", "0.9", "--warmup-steps", "5",
+    "--upsample-ratio", "0.25", "-t", "mlp", "--no-kl-diagnostic", "--expert-iter",
+    "--expert-depth", "2", "--expert-mix", "0.5", "--print-freq", "100", "--eval-freq", "25",
+    "--eval-games", "256", "--checkpoint-freq", "25", "--scan-cap", "2560",
+    "--anchor-kl", "0.5"]
+# A verbatim step runs until its longest game ends: expert games last
+# 1,300-2,560 moves at about 0.1 s of host time a move, minutes a step. The
+# phases cap the rollout at this many trips (--max-steps), which keeps every
+# width and the 32 games; the profile measures a whole step.
+EXPERT_MAX_STEPS = 128
+EXPERT_SOURCE = ROOT / "checkpoints_expF"  # step 200 of the JAX run
+EXPERT_STEPS = 203  # steps 201-202
+EXPERT_LIVE_STEPS = 20001  # checkpoints_expA's step 20000
+# The card's depth-2 search scores of the first trips' boards against the
+# CPU's (the same teacher and bf16 leaves, the plain merge): f32 sums over
+# 32 spawn slots a level, in another order.
+EXPERT_CHECK_TRIPS = 2
+# Floors fixed before the first card run. expF: the JAX run's best eval at
+# step 200 2,062.58 at n=256, its EMA of completed episodes 2,264 (TPU,
+# checkpoints_expF/*.json). The live phase: train_exact's floor (lr 5e-5
+# near the end of its schedule barely moves expA's policy).
+EXPERT_MIN_EVAL_AVG = 1000
+EXPERT_LIVE_MIN_EVAL_AVG = 4500
 
 
 def phase(name: str, t0: float, text: str) -> None:
@@ -417,38 +474,54 @@ def urm_phase(by_phase: dict, device="cuda") -> None:
 
 def learner_card_vs_cpu(cfg, state_dict: dict, opt_state, traj, n_rows: int = LEARNER_ROWS,
                         n_slots: int = LEARNER_SLOTS) -> str:
-    """One learner minibatch of ``n_rows`` real rows of the packed ``traj``
-    and a plan of ``n_slots`` slots, schedule multiplier 1, on the card and
-    on a CPU copy of ``cfg``'s model from the same parameters, optimizer
-    state, plan and shuffle; raises beyond LEARNER_RTOL / LEARNER_ATOL."""
+    """One learner minibatch of the first ``n_rows`` valid rows of ``traj``
+    (packed or exact) and a plan of ``n_slots`` slots, schedule multiplier 1,
+    with ``cfg``'s objective (PPO, or imitation with the rollout's targets)
+    and its anchor (a frozen copy of the same parameters, under
+    --anchor-kl), on the card and on a CPU copy of ``cfg``'s model from the
+    same parameters, optimizer state, plan and shuffle; raises beyond
+    LEARNER_RTOL / LEARNER_ATOL. Dropout is turned off: the two sides would
+    draw different masks."""
     device = traj.valid.device
-    adv = A.compute_packed(traj.points, traj.mono_before, traj.mono_after,
-                           traj.empt_before, traj.empt_after, traj.value_pred,
-                           traj.valid, traj.done_here, traj.boot_value,
-                           cfg.reward_weights, cfg.gamma, A.RtgMoments.initial(device),
-                           cfg.rtg_beta, 1)
+    fields = (traj.points, traj.mono_before, traj.mono_after, traj.empt_before,
+              traj.empt_after, traj.value_pred, traj.valid)
+    if cfg.packed:
+        adv = A.compute_packed(*fields, traj.done_here, traj.boot_value, cfg.reward_weights,
+                               cfg.gamma, A.RtgMoments.initial(device), cfg.rtg_beta, 1)
+    else:
+        adv = A.compute(*fields, cfg.reward_weights, cfg.gamma, A.RtgMoments.initial(device),
+                        cfg.rtg_beta, 1)
+    idx = traj.valid.reshape(-1).nonzero()[:n_rows, 0]
+    if idx.shape[0] < n_rows:
+        raise AssertionError(f"{idx.shape[0]} valid rows, the check needs {n_rows}")
 
     def rows(x):
-        return x.reshape((-1,) + x.shape[2:])[:n_rows].cpu()
+        return x.reshape((-1,) + x.shape[2:])[idx].cpu()
 
     gen = torch.Generator().manual_seed(7)
     plan = AUG.plan(gen, n_slots, torch.tensor(n_slots), torch.ones(n_rows, dtype=torch.bool))
-    ds = U.Dataset(board_before=rows(traj.board_before), action=rows(traj.action).long(),
+    ds = U.Dataset(board_before=rows(traj.board_before),
+                   action=rows(traj.target_action).long(),
                    action_mask=rows(traj.action_mask), advantage=rows(adv["advantage"]),
                    G_norm=rows(adv["G_norm"]), logprobs=rows(traj.logprobs),
+                   target_probs=rows(traj.target_probs),
                    valid=torch.cat([torch.ones(n_rows, dtype=torch.bool), plan.valid]),
                    aug_src=plan.src, aug_tf=plan.transform)
     perm = torch.rand(1, ds.valid.shape[0], generator=gen)
+    check_cfg = dataclasses.replace(cfg, dropout=0.0)
 
     def run(dev):
-        _, model, labels = loop.build_model(cfg)
+        _, model, labels = loop.build_model(check_cfg)
         model.load_state_dict(state_dict)
         model.to(dev).eval()
+        anchor = None
+        if cfg.anchor_kl > 0:
+            anchor = (copy.deepcopy(model).requires_grad_(False), cfg.anchor_kl)
         st = opt.OptState(*({k: v.to(dev, copy=True) for k, v in part.items()} for part in
                             (opt_state.momentum, opt_state.m, opt_state.v)), opt_state.step)
         fn = U.make_optimize_fn(model, labels, opt.OptimizerConfig(
             learning_rate=cfg.learning_rate, critic_lr=cfg.critic_lr), cfg.batch_size, 1,
-            kl_diagnostic=False)
+            kl_diagnostic=False, objective=loop.objective(cfg), anchor=anchor)
         stats = fn(st, U.Dataset(*(None if x is None else x.to(dev) for x in ds)),
                    cfg.entropy_strength, cfg.critic_strength, np.float32(1.0),
                    perm_draws=perm.to(dev))
@@ -467,8 +540,11 @@ def learner_card_vs_cpu(cfg, state_dict: dict, opt_state, traj, n_rows: int = LE
         if d > LEARNER_ATOL:
             raise AssertionError(f"learner {n}: card vs CPU max |diff| {d} > {LEARNER_ATOL}")
         err = max(err, d)
-    moved = max(float((cpu_p[n] - state_dict[n]).abs().max()) for n in cpu_p)
-    return (f"learner minibatch of {n_rows + 2 * n_slots} rows card == CPU: loss "
+    moved = max(float((cpu_p[n] - state_dict[n].cpu()).abs().max()) for n in cpu_p)
+    what = loop.objective(cfg) + (f" with anchor KL {cfg.anchor_kl}" if cfg.anchor_kl > 0
+                                  else "")
+    return (f"{what} learner minibatch of {n_rows + 2 * n_slots} rows card == CPU"
+            + (" (dropout off)" if cfg.dropout > 0 else "") + f": loss "
             f"{float(card.loss):.7g} vs {float(cpu.loss):.7g}, grad norm "
             f"{float(card.grad_norm):.7g} vs {float(cpu.grad_norm):.7g} (rtol "
             f"{LEARNER_RTOL}); params max |diff| {err:.3g} (atol {LEARNER_ATOL}; largest "
@@ -935,6 +1011,235 @@ def train_exact_phase(by_phase: dict, device="cuda") -> None:
           f"{by_phase['train_exact']}")
 
 
+def search_merges(depth: int) -> int:
+    """Merge launches of one ``expectimax_scores`` call handed the root's
+    moves: the leaves' ``all_moves`` at depth 1; deeper, each of the 32
+    spawn slots runs ``state_values``, its own ``all_moves`` and its
+    subtree."""
+    return 1 if depth <= 1 else NUM_SPAWNS * (1 + search_merges(depth - 1))
+
+
+def check_expert_traj(traj, n_expert: int) -> tuple:
+    """The expert-driven envs took their ``target_action``, every taken
+    action is legal, and every ``target_probs`` row of a board with a legal
+    move sums to 1 over the legal moves (0 on the illegal ones). Returns
+    (rows checked, largest |sum - 1|, agreement of the policy envs' moves
+    with the expert's labels)."""
+    valid = traj.valid
+    action, target = traj.action.long(), traj.target_action.long()
+    if not (action == target)[:, :n_expert][valid[:, :n_expert]].all():
+        raise AssertionError("an expert-driven env did not take its target_action")
+    taken_illegal = traj.action_mask.gather(-1, action[..., None])[..., 0]
+    if (taken_illegal & valid).any():
+        raise AssertionError("an illegal action was taken")
+    probs, illegal = traj.target_probs[valid], traj.action_mask[valid]
+    live = ~illegal.all(-1)
+    if (probs[illegal] != 0).any():
+        raise AssertionError("target_probs > 0 on an illegal move")
+    sum_err = float((probs[live].sum(-1) - 1).abs().max())
+    if sum_err > 1e-5:
+        raise AssertionError(f"target_probs rows sum to 1 within {sum_err}")
+    policy = valid[:, n_expert:]
+    agree = float((action == target)[:, n_expert:][policy].float().mean())
+    return int(valid.sum()), sum_err, agree
+
+
+def search_card_vs_cpu(cfg, boards: torch.Tensor, labels: torch.Tensor) -> str:
+    """The teacher's depth-``cfg.expert_depth`` scores of ``boards`` (trips,
+    N, 4, 4) on the card, a trip at a time as the rollout ran them, against
+    a CPU copy (the same checkpoint and bf16 leaves, the plain merge) to
+    SEARCH_TOL; and the rollout's ``labels`` (trips, N) of them against the
+    CPU's first argmax, except where the CPU's top two scores lie within
+    that tolerance (near-ties, counted)."""
+    scores = {}
+    with torch.inference_mode():
+        for dev in (boards.device, torch.device("cpu")):
+            teacher, coefs = loop.load_teacher(cfg, dev)
+            scores[dev.type] = np.concatenate([
+                expectimax_scores(teacher, b.to(dev), None, coefs, cfg.expert_depth).cpu().numpy()
+                for b in boards])
+    card, cpu = scores[boards.device.type], scores["cpu"]
+    if not np.array_equal(np.isfinite(card), np.isfinite(cpu)):
+        raise AssertionError("search scores finite in other places on the card and the CPU")
+    ok = np.isfinite(cpu)
+    err = assert_close("expert search, card vs CPU", card[ok], cpu[ok], SEARCH_TOL)
+    top2 = np.sort(np.where(ok, cpu, -np.inf), 1)[:, -2:]
+    near = np.abs(top2[:, 1] - top2[:, 0]) <= SEARCH_TOL * (np.abs(top2[:, 1]) + 1)
+    labels = labels.reshape(-1).long().cpu().numpy()
+    if not np.array_equal(labels[~near], cpu.argmax(1)[~near]):
+        raise AssertionError("target_action differs from the CPU's argmax away from near-ties")
+    return (f"depth-{cfg.expert_depth} teacher scores of the first {boards.shape[0]} trips' "
+            f"{labels.size} boards card == CPU to {SEARCH_TOL} (max |diff| {err:.6g}); "
+            f"target_action == the CPU argmax on {int((~near).sum())} boards, "
+            f"{int(near.sum())} near-ties (top two within {SEARCH_TOL}) not held")
+
+
+def expert_phase_run(name: str, recipe: list, source: Path, stop: int, by_phase: dict,
+                     device: str) -> dict:
+    """Resume ``source``'s train_state with ``recipe`` capped at
+    EXPERT_MAX_STEPS trips until step ``stop``; per step its merge launches
+    (trips x (the search's + the step's) + 1 for the fresh boards, + 1 at
+    print cadence, + an eval-in-train's at eval cadence, which the cap also
+    cuts) and the checks of :func:`check_expert_traj`; the first step's
+    state and trajectory for the learner check; then the recipe's eval of
+    its games at the last step, uncapped (to the recipe's scan cap), as
+    eval-in-train runs it in the recipe."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_state(source, tmp, names=("train_state",))
+        cfg = cli.train_config(recipe + [
+            "--steps", str(stop), "--resume", "--checkpoint-dir", tmp, "--log-dir", tmp,
+            "--max-steps", str(EXPERT_MAX_STEPS), "--device", device])
+        n_expert = int(round(cfg.expert_mix * cfg.num_episodes))
+        per_trip = search_merges(cfg.expert_depth) + 1
+        steps, marks = [], [merge.launches]
+
+        def on_step(info):
+            sync(device)
+            marks.append(merge.launches)
+            traj = info["traj"]
+            rows, sum_err, agree = check_expert_traj(traj, n_expert)
+            rec = dict(step=info["step"], trips=traj.steps_executed,
+                       moves=int(traj.num_moves.sum()), scalars=info["scalars"],
+                       launches=marks[-1] - marks[-2], rollout_s=info["rollout_s"],
+                       learner_s=info["learner_s"], rows=rows, sum_err=sum_err,
+                       agree=agree)
+            if not steps:
+                st = info["opt_state"]
+                rec["first"] = (
+                    {n: p.detach().cpu().clone() for n, p in info["model"].state_dict().items()},
+                    opt.OptState(*({k: v.clone() for k, v in part.items()}
+                                   for part in (st.momentum, st.m, st.v)), st.step), traj)
+            steps.append(rec)
+
+        summary, printed = run_quiet(cfg, on_step)
+        t_eval = time.perf_counter()
+        key = np.load(source / "train_state.npz")["['key']"]
+        eval_cfg = dataclasses.replace(cfg, max_steps=None)
+        em = loop.make_eval_fn(eval_cfg)(summary["model"], key, stop - 1,
+                                         (stop - 1) // cfg.eval_freq)
+        sync(device)
+        eval_s = time.perf_counter() - t_eval
+        _, model, _ = loop.build_model(cfg)
+        _, _, _, manifest = loop.load_train_state(tmp, model, "cpu")
+    if [s["step"] for s in steps] != list(range(stop - len(steps), stop)) or not steps:
+        raise AssertionError(f"resumed steps {[s['step'] for s in steps]}, expected up to "
+                             f"{stop - 1}")
+    if manifest["train_step"] != stop - 1:
+        raise AssertionError(f"saved train_state is at step {manifest['train_step']}")
+    for s in steps:
+        check_finite(f"{name} step {s['step']}", s["scalars"])
+        if s["scalars"]["env_steps"] != s["moves"]:
+            raise AssertionError(f"step {s['step']}: env_steps {s['scalars']['env_steps']} "
+                                 f"!= {s['moves']} moves")
+        # The trips' searches and steps, the fresh boards' merge, one for
+        # the heuristics of a printed episode, and an eval-in-train's (its
+        # fresh boards and at most rollout_cap trips).
+        expected = s["trips"] * per_trip + 1 + int(s["step"] % cfg.print_frequency == 0)
+        extra = s["launches"] - expected
+        if not (2 <= extra <= 1 + cfg.rollout_cap if s["step"] % cfg.eval_freq == 0
+                else extra == 0):
+            raise AssertionError(f"step {s['step']}: {s['launches']} merge launches for "
+                                 f"{s['trips']} trips, expected {s['trips']} x {per_trip} "
+                                 f"+ {expected - s['trips'] * per_trip}, and an eval's")
+    by_phase[name] = merge.launches - before
+    return dict(t0=t0, cfg=cfg, steps=steps, em=em, eval_s=eval_s, printed=printed,
+                per_trip=per_trip, n_expert=n_expert,
+                eval_launches=merge.launches - marks[-1])
+
+
+def expert_steps_text(run: dict) -> str:
+    return "; ".join(
+        f"step {s['step']}: {s['trips']} trips ({s['launches']} merge launches, "
+        f"{s['rollout_s'] * 1e3 / s['trips']:.3f} ms a trip), {s['moves']} moves, rollout "
+        f"{s['rollout_s']:.3f} s, learner {s['learner_s']:.3f} s, "
+        f"{s['scalars']['num_batches']:.0f} minibatches, loss {s['scalars']['loss']:.6g}, "
+        f"target_probs of {s['rows']} rows sum to 1 within {s['sum_err']:.3g}, policy envs "
+        f"agree with the expert on {s['agree']:.3f} of their moves" for s in run["steps"])
+
+
+def train_expert_phase(by_phase: dict, device="cuda") -> None:
+    """checkpoints_expF (the JAX run's expert-iteration student, step 200)
+    resumed on the card for 2 steps of scripts/train_expF_wide.sh, its
+    rollout capped at EXPERT_MAX_STEPS trips: the frozen expA teacher's
+    calibration, its scores on the card against the CPU, the labels, the
+    expert-driven envs' moves, an imitation-sharp learner minibatch card
+    against CPU, the merge launches, and the recipe's eval."""
+    run = expert_phase_run("train_expert", EXPERT_RECIPE, EXPERT_SOURCE, EXPERT_STEPS,
+                           by_phase, device)
+    cfg, first = run["cfg"], run["steps"][0]
+    coefs = load_search_coefs(cfg.expert_src)
+    if f"(sigma={coefs.sigma:.1f}, mu={coefs.mu:.1f})" not in run["printed"]:
+        raise AssertionError("the frozen teacher's calibration was not printed")
+    state_dict, opt_state, traj = first["first"]
+    before = merge.launches
+    scores = search_card_vs_cpu(cfg, traj.board_before[:EXPERT_CHECK_TRIPS].to(torch.int32),
+                                traj.target_action[:EXPERT_CHECK_TRIPS])
+    learner = learner_card_vs_cpu(cfg, state_dict, opt_state, traj)
+    by_phase["train_expert"] += merge.launches - before
+    em = run["em"]
+    if em["avg_score"] <= EXPERT_MIN_EVAL_AVG:
+        raise AssertionError(f"eval avg {em['avg_score']} <= {EXPERT_MIN_EVAL_AVG}")
+    phase("train_expert", run["t0"], f"{EXPERT_SOURCE.name} (JAX-written student MLP "
+          f"H=384x3, step 200) resumed, 2 steps of scripts/train_expF_wide.sh with "
+          f"--max-steps {EXPERT_MAX_STEPS} (the recipe's directories and --steps changed): "
+          f"frozen {Path(cfg.expert_src).name} teacher, depth {cfg.expert_depth}, bf16 "
+          f"leaves, load_search_coefs sigma={coefs.sigma:.6g} mu={coefs.mu:.6g} "
+          f"points={coefs.points} mono={coefs.mono} gamma={coefs.gamma}; {scores}; "
+          f"the {run['n_expert']} expert-driven envs took their labels, every move legal; "
+          + expert_steps_text(run) + f"; {learner}; eval of {cfg.eval_games} sampled games "
+          f"at step {EXPERT_STEPS - 1} (uncapped, as eval-in-train runs it): avg "
+          f"{em['avg_score']}, max {em['max_score']}, median {em['median_score']}, pct_2048 "
+          f"{em['pct_2048']} (floor {EXPERT_MIN_EVAL_AVG}), {run['eval_s']:.3f} s; "
+          f"step-{EXPERT_STEPS - 1} train_state saved; merge launches "
+          f"{by_phase['train_expert']} ({run['per_trip']} a trip + 1 a step, eval "
+          f"{run['eval_launches']}, checks {merge.launches - before})")
+
+
+def train_expert_live_phase(by_phase: dict, device="cuda") -> None:
+    """checkpoints_expA's train_state resumed on the card for 1 step of
+    scripts/train_expC_ei.sh (the live teacher) with --anchor-kl 0.5: the
+    live coefs against the CPU's from the saved moments, a learner
+    minibatch with the anchor card against CPU, and the recipe's eval."""
+    arrays = np.load(EXACT_SOURCE / "train_state.npz")
+    run = expert_phase_run("train_expert_live", EXPERT_LIVE_RECIPE, EXACT_SOURCE,
+                           EXPERT_LIVE_STEPS, by_phase, device)
+    cfg, first = run["cfg"], run["steps"][0]
+    coefs = {}
+    for dev in (device, "cpu"):
+        moments = A.RtgMoments(*(torch.tensor(arrays[f"['moments'].{f}"], device=dev)
+                                 for f in A.RtgMoments._fields))
+        c = loop.expert_args(cfg, None, None, moments, EXPERT_LIVE_STEPS)["expert_coefs"]
+        if not isinstance(c.sigma, torch.Tensor) or c.sigma.device.type != torch.device(
+                dev).type:
+            raise AssertionError(f"live coefs not on {dev}")
+        coefs[dev] = (float(c.sigma), float(c.mu))
+    if not np.allclose(coefs[device], coefs["cpu"], rtol=1e-6, atol=0):
+        raise AssertionError(f"live coefs card {coefs[device]} vs CPU {coefs['cpu']}")
+    if "Anchor KL trust region: strength 0.5" not in run["printed"]:
+        raise AssertionError("the anchor was not set up")
+    state_dict, opt_state, traj = first["first"]
+    before = merge.launches
+    learner = learner_card_vs_cpu(cfg, state_dict, opt_state, traj)
+    by_phase["train_expert_live"] += merge.launches - before
+    em = run["em"]
+    if em["avg_score"] <= EXPERT_LIVE_MIN_EVAL_AVG:
+        raise AssertionError(f"eval avg {em['avg_score']} <= {EXPERT_LIVE_MIN_EVAL_AVG}")
+    phase("train_expert_live", run["t0"], f"{EXACT_SOURCE.name} (JAX-written MLP H=196x2, "
+          f"step 19,999) resumed, 1 step of scripts/train_expC_ei.sh without "
+          f"--decouple-critic, with --anchor-kl 0.5 and --max-steps {EXPERT_MAX_STEPS}: live "
+          f"depth-{cfg.expert_depth} teacher, coefs from the moments card (sigma, mu) "
+          f"{coefs[device]} == CPU {coefs['cpu']} (rtol 1e-6); the {run['n_expert']} "
+          f"expert-driven envs took their labels, every move legal; " + expert_steps_text(run)
+          + f"; {learner}; the loop's own eval at step {EXPERT_LIVE_STEPS - 1} ran to "
+          f"--max-steps; eval of {cfg.eval_games} sampled games at step "
+          f"{EXPERT_LIVE_STEPS - 1} (uncapped): avg {em['avg_score']}, max "
+          f"{em['max_score']}, pct_2048 {em['pct_2048']} (floor {EXPERT_LIVE_MIN_EVAL_AVG}), "
+          f"{run['eval_s']:.3f} s; merge launches {by_phase['train_expert_live']} "
+          f"({run['per_trip']} a trip + 1 a step, eval {run['eval_launches']})")
+
+
 def main() -> None:
     # 1. device
     t0 = time.perf_counter()
@@ -1079,8 +1384,10 @@ def main() -> None:
     train_resume_phase(by_phase)
     train_urm_phase(by_phase)
     train_exact_phase(by_phase)
+    train_expert_phase(by_phase)
+    train_expert_live_phase(by_phase)
 
-    # 13. kernels
+    # 15. kernels
     t0 = time.perf_counter()
     main_launches = merge.launches
     if main_launches != sum(by_phase.values()):

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile.py [--steps 300] [--out chiprun_out/torch_profile.json]
         [--merge-baseline OLD/merge4.cu] [--merge-only] [--search-only]
-        [--train-only [--train-recipe all|expG|urm|expA2]]
+        [--train-only [--train-recipe all|expG|urm|expA2|expF] [--expert-max-steps N]]
 
 Loads checkpoints_expG (H=384x3) on ``cuda`` and, for the eval step of 256
 greedy games and for a served request of 1 and of 256 boards, sets the host's
@@ -53,7 +53,12 @@ merge launches; the recorder alone (the chunk's trips replayed through
 rollout; and the learner per minibatch: forward+backward, Newton-Schulz
 and AdamW, each replayed alone at the recipe's shapes under the profiler,
 and the rest (the batch gather and augmentation, the loss bookkeeping, the
-clip, Muon's momentum and update) as the difference.
+clip, Muon's momentum and update) as the difference. expF (expert
+iteration: scripts/train_expF_wide.sh resumed from checkpoints_expF, the
+frozen depth-2 expA teacher with bf16 leaves) runs one step to the
+recipe's own cap, so until its longest game ends (``--expert-max-steps``
+caps it), and splits a trip into the search and the rest
+(:func:`expert_step_profile`).
 
 The search (``--search-only`` runs it alone) is measured at depth 1 over 256
 games of checkpoints_expG, depth 2 over 32 games of checkpoints_expA (each
@@ -76,6 +81,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import dataclasses
 import json
 import re
 import shutil
@@ -567,6 +573,7 @@ TRAIN_PROFILES = {
     "expA2": (chip_smoke.EXACT_RECIPE, ROOT / "checkpoints_expA"),
 }
 TRAIN_STEP = 100  # a step past the warmup: the schedule's multiplier is not 0
+EXPERT_PROFILE_TRIPS = 4  # trips of the expert rollout under the profiler
 
 
 def profiled(fn, reps: int = 1, kernel: str = "merge4") -> tuple:
@@ -599,10 +606,50 @@ def timed_host_ms(fn) -> tuple:
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def train_step_profile(name: str) -> dict:
-    """One train step of recipe ``name``, split (see the module docstring)."""
+def minibatch_parts(cfg, model, labels: dict, opt_state, traj) -> dict:
+    """Device ms of a learner minibatch's forward+backward, Newton-Schulz and
+    AdamW, each replayed alone under the profiler at the recipe's shapes
+    (the first ``batch_size`` rows of ``traj``)."""
     import copy
 
+    flat = lambda x: x.reshape((-1,) + x.shape[2:])[:cfg.batch_size]  # noqa: E731
+    inputs = encode_boards(flat(traj.board_before).to(torch.int32))
+    params = dict(model.named_parameters())
+    weights = torch.ones(inputs.shape[0], device="cuda")
+    drop = torch.Generator(device="cuda").manual_seed(0)
+
+    def fwd_bwd():
+        model.train()
+        logits, values = model(inputs, drop)
+        loss, _ = losses.ppo_loss(logits, values, flat(traj.action).long(),
+                                  flat(traj.action_mask), flat(traj.value_pred),
+                                  flat(traj.value_pred), flat(traj.logprobs), weights,
+                                  kl_strength=0.02, critic_strength=0.2)
+        return torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+
+    groups = collections.defaultdict(list)
+    for n, p in params.items():
+        if labels[n].startswith("muon"):
+            groups[tuple(p.shape)].append(p.detach())
+    stacks = [torch.stack(g) for g in groups.values()]
+    one_d = [n for n in params if labels[n].startswith("adamw")]
+    st = copy.deepcopy(opt_state)
+    p1 = [params[n].detach().clone() for n in one_d]
+    g1 = [torch.randn_like(p) * 1e-3 for p in p1]
+    m1, v1 = [st.m[n] for n in one_d], [st.v[n] for n in one_d]
+    parts = {
+        "forward+backward": profiled(fwd_bwd, reps=5)[0]["device_ms"],
+        "newton_schulz": profiled(
+            lambda: [muon.newton_schulz(x) for x in stacks], reps=5)[0]["device_ms"],
+        "adamw": profiled(
+            lambda: adamw.update_(p1, g1, m1, v1, 5, np.float32(1e-3)), reps=5)[0]["device_ms"],
+    }
+    model.eval()
+    return parts
+
+
+def train_step_profile(name: str) -> dict:
+    """One train step of recipe ``name``, split (see the module docstring)."""
     from tpu2048_torch.algo import capture
     from tpu2048_torch.algo import update as U
     from tpu2048_torch.ops import optimizer as opt
@@ -705,40 +752,7 @@ def train_step_profile(name: str) -> dict:
             and roll_dev is not None:
         recorder["share_of_rollout_device"] = recorder["device_ms_per_trip"] * trips_dev / roll_dev
 
-    # Per-minibatch parts, replayed alone at the recipe's shapes.
-    flat = lambda x: x.reshape((-1,) + x.shape[2:])[:cfg.batch_size]  # noqa: E731
-    inputs = encode_boards(flat(traj.board_before).to(torch.int32))
-    params = dict(model.named_parameters())
-    weights = torch.ones(inputs.shape[0], device="cuda")
-    drop = torch.Generator(device="cuda").manual_seed(0)
-
-    def fwd_bwd():
-        model.train()
-        logits, values = model(inputs, drop)
-        loss, _ = losses.ppo_loss(logits, values, flat(traj.action).long(),
-                                  flat(traj.action_mask), flat(traj.value_pred),
-                                  flat(traj.value_pred), flat(traj.logprobs), weights,
-                                  kl_strength=0.02, critic_strength=0.2)
-        return torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-
-    groups = collections.defaultdict(list)
-    for n, p in params.items():
-        if labels[n].startswith("muon"):
-            groups[tuple(p.shape)].append(p.detach())
-    stacks = [torch.stack(g) for g in groups.values()]
-    one_d = [n for n in params if labels[n].startswith("adamw")]
-    st = copy.deepcopy(opt_state)
-    p1 = [params[n].detach().clone() for n in one_d]
-    g1 = [torch.randn_like(p) * 1e-3 for p in p1]
-    m1, v1 = [st.m[n] for n in one_d], [st.v[n] for n in one_d]
-    parts = {
-        "forward+backward": profiled(fwd_bwd, reps=5)[0]["device_ms"],
-        "newton_schulz": profiled(
-            lambda: [muon.newton_schulz(x) for x in stacks], reps=5)[0]["device_ms"],
-        "adamw": profiled(
-            lambda: adamw.update_(p1, g1, m1, v1, 5, np.float32(1e-3)), reps=5)[0]["device_ms"],
-    }
-    model.eval()
+    parts = minibatch_parts(cfg, model, labels, opt_state, traj)
     learner_dev = None if proc_dev is None or adv_dev is None else proc_dev - adv_dev
     per_mb = None if learner_dev is None else learner_dev / nb_dev
     if per_mb is not None and None not in parts.values():
@@ -771,6 +785,110 @@ def train_step_profile(name: str) -> dict:
     }
 
 
+def expert_step_profile(max_steps: int) -> dict:
+    """One step of scripts/train_expF_wide.sh resumed from checkpoints_expF
+    (step 200), its rollout to the recipe's cap (``max_steps`` if not 0),
+    split: host ms of the rollout and the learner in the step (each ended
+    by a synchronize); device ms, kernels and host operations of a trip
+    from EXPERT_PROFILE_TRIPS trips run under ``torch.profiler`` (a trip's
+    work is set by its 32 boards, not by their tiles), with the merge
+    kernel's share and the search's (the teacher's ``expectimax_scores`` of
+    a trip's boards, under the profiler alone); the learner as
+    :func:`train_step_profile` reports it."""
+    from tpu2048_torch.algo import update as U
+    from tpu2048_torch.ops import optimizer as opt
+
+    argv = chip_smoke.EXPERT_RECIPE + ["--steps", "600", "--device", "cuda"] + (
+        ["--max-steps", str(max_steps)] if max_steps else [])
+    cfg = cli.train_config(argv)
+    _, model, labels = loop.build_model(cfg)
+    model.to("cuda").eval()
+    opt_state, moments, key, manifest = loop.load_train_state(chip_smoke.EXPERT_SOURCE,
+                                                              model, "cuda")
+    step = manifest["train_step"] + 1
+    teacher, coefs = loop.load_teacher(cfg, "cuda")
+    ocfg = opt.OptimizerConfig(learning_rate=cfg.learning_rate, critic_lr=cfg.critic_lr)
+    optimize = U.make_optimize_fn(model, labels, ocfg, cfg.batch_size, cfg.ppo_epochs,
+                                  kl_diagnostic=False, objective=loop.objective(cfg))
+    process = loop.make_process_fn(cfg, optimize)
+
+    def rollout(trips):
+        return R.rollout(
+            model, cfg.num_episodes, trips,
+            action_generator=loop.make_generator("cuda", *key, step, loop.ACTION),
+            env_generator=loop.make_generator("cuda", *key, step, loop.EXACT_ENV),
+            **loop.expert_args(cfg, teacher, coefs, moments, step + 1))
+
+    def advantage(traj):
+        return A.compute(traj.points, traj.mono_before, traj.mono_after, traj.empt_before,
+                         traj.empt_after, traj.value_pred, traj.valid, cfg.reward_weights,
+                         cfg.gamma, moments, cfg.rtg_beta, step + 1)
+
+    gens = {s: loop.make_generator("cuda", *key, step, s)
+            for s in (loop.AUGMENT, loop.PERMUTE, loop.DROPOUT)}
+    # Warm-up: the kernel build, cuBLAS handles, the learner's first
+    # backward (its first call costs about 0.5 s more on the card).
+    loop.make_process_fn(dataclasses.replace(cfg, max_steps=2), optimize)(
+        opt_state, rollout(2), moments, step + 1, cfg.entropy_strength, generators=gens)
+    merge_before = merge.launches
+    roll_host, traj = timed_host_ms(lambda: rollout(cfg.rollout_cap))
+    merges, trips = merge.launches - merge_before, traj.steps_executed
+    adv_host, _ = timed_host_ms(lambda: advantage(traj))
+    proc_host, (_, out) = timed_host_ms(lambda: process(
+        opt_state, traj, moments, step + 1, cfg.entropy_strength, generators=gens))
+    sc = dict(zip(loop.SCALAR_KEYS, out["scalars"].tolist()))
+    nb = int(sc["num_batches"])
+
+    # A trip's device time, and the search's part of it on a trip's boards.
+    trip_p, _ = profiled(lambda: rollout(EXPERT_PROFILE_TRIPS))
+    boards = traj.board_before[trips // 2].to(torch.int32)
+    moves = engine.all_moves(boards)
+    with torch.inference_mode():
+        search_p, _ = profiled(lambda: expectimax_scores(teacher, boards, moves, coefs,
+                                                         cfg.expert_depth), reps=2)
+    adv_p, _ = profiled(lambda: advantage(traj))
+    proc_p, (_, out2) = profiled(lambda: process(
+        opt_state, traj, moments, step + 1, cfg.entropy_strength, generators=gens))
+    nb_dev = int(dict(zip(loop.SCALAR_KEYS, out2["scalars"].tolist()))["num_batches"])
+    parts = minibatch_parts(cfg, model, labels, opt_state, traj)
+    trip_dev = None if trip_p["device_ms"] is None else trip_p["device_ms"] / EXPERT_PROFILE_TRIPS
+    learner_dev = (None if proc_p["device_ms"] is None or adv_p["device_ms"] is None
+                   else proc_p["device_ms"] - adv_p["device_ms"])
+    per_mb = None if learner_dev is None else learner_dev / nb_dev
+    if per_mb is not None and None not in parts.values():
+        parts["rest"] = per_mb - sum(parts.values())
+    host_trip = roll_host / trips
+    return {
+        "recipe": "expF", "config": argv, "state": "checkpoints_expF train_state",
+        "teacher": cfg.expert_src, "train_step": step, "cap": cfg.rollout_cap,
+        "env_steps": sc["env_steps"], "trips": trips, "minibatches": [nb, nb_dev],
+        "merge_launches_rollout": merges, "merge_launches_per_trip": merges / trips,
+        "rollout": {"host_ms": roll_host, "host_ms_per_trip": host_trip,
+                    "device_ms_per_trip": trip_dev,
+                    "idle_share": None if trip_dev is None else 1 - trip_dev / host_trip,
+                    "merge_device_ms_per_trip": None if trip_dev is None
+                    else trip_p["named_ms"] / EXPERT_PROFILE_TRIPS,
+                    "search_device_ms": search_p["device_ms"],
+                    "search_share_of_trip_device": None if trip_dev is None
+                    else search_p["device_ms"] / trip_dev,
+                    "search_merge_device_ms": search_p["named_ms"],
+                    "kernels_per_trip": trip_p["kernels"] / EXPERT_PROFILE_TRIPS,
+                    "host_ops_per_trip": trip_p["host_ops"] / EXPERT_PROFILE_TRIPS},
+        "advantage": {"host_ms": adv_host, "device_ms": adv_p["device_ms"]},
+        "learner": {"host_ms": proc_host - adv_host, "device_ms": learner_dev,
+                    "host_ms_per_minibatch": (proc_host - adv_host) / nb,
+                    "device_ms_per_minibatch": per_mb,
+                    "device_ms_per_minibatch_parts": parts,
+                    "kernels_per_minibatch": (proc_p["kernels"] - adv_p["kernels"]) / nb_dev,
+                    "host_ops_per_minibatch": (proc_p["host_ops"] - adv_p["host_ops"]) / nb_dev,
+                    "idle_share": None if learner_dev is None
+                    else 1 - learner_dev / (proc_host - adv_host)},
+        "step_host_ms": roll_host + proc_host,
+        "env_steps_per_s": sc["env_steps"] / (roll_host + proc_host) * 1e3,
+        "batch_avg_score": sc["batch_avg_score"], "batch_max_score": sc["batch_max_score"],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=300)
@@ -779,7 +897,9 @@ def main() -> None:
     ap.add_argument("--merge-only", action="store_true")
     ap.add_argument("--search-only", action="store_true")
     ap.add_argument("--train-only", action="store_true")
-    ap.add_argument("--train-recipe", default="all", choices=("all", *TRAIN_PROFILES))
+    ap.add_argument("--train-recipe", default="all", choices=("all", *TRAIN_PROFILES, "expF"))
+    ap.add_argument("--expert-max-steps", type=int, default=0,
+                    help="cap of the expF step's rollout (0: the recipe's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -796,9 +916,11 @@ def main() -> None:
         return
     if args.train_only:
         result["train"] = {}
-        names = TRAIN_PROFILES if args.train_recipe == "all" else [args.train_recipe]
+        names = ([*TRAIN_PROFILES, "expF"] if args.train_recipe == "all"
+                 else [args.train_recipe])
         for name in names:
-            result["train"][name] = train_step_profile(name)
+            result["train"][name] = (expert_step_profile(args.expert_max_steps)
+                                     if name == "expF" else train_step_profile(name))
             say(json.dumps(result["train"][name]))
             out.write_text(json.dumps(result, indent=1))
         say(f"written: {out}")

@@ -121,9 +121,3 @@ def test_sampled_rollout_is_legal_and_repeatable():
     assert not (taken & traj.valid).any()
     for name in TR.Trajectory._fields[:-1]:
         assert torch.equal(getattr(traj, name), getattr(again, name)), name
-
-
-def test_expert_rollout_is_not_yet_ported():
-    model = GameMLP(MLPConfig(hidden_dim=16, num_layers=1)).eval()
-    with pytest.raises(NotImplementedError, match="expert"):
-        TR.rollout(model, 2, 4, expert_depth=1)

@@ -18,8 +18,9 @@
   equal leaf for leaf.
 * Full width on the CPU: a copy of checkpoints_expG resumes at step 20000
   on its 512 carried boards and writes its step-20000 checkpoint.
-* Unported flags raise NotImplementedError; asking for cuda without a card
-  raises."""
+* Unported flags raise NotImplementedError (expert iteration and the
+  anchor are ported: tests/test_torch_expert_train.py); asking for cuda
+  without a card raises."""
 
 import contextlib
 import io
@@ -337,8 +338,6 @@ def test_resumes_checkpoints_expG_at_full_width(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--packed", "--no-packed-capture", "--expert-iter"], "--expert-iter"),
-    (["--packed", "--no-packed-capture", "--anchor-kl", "0.1"], "--anchor-kl"),
     (["--packed", "--no-packed-capture", "--mesh-data", "2"], "--mesh-data"),
     (["--packed", "--no-packed-capture", "--export-demo"], "--export-demo"),
     (["--packed", "--no-packed-capture", "--wandb"], "--wandb"),

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from ..env import engine, heuristics
 from ..models.encoding import encode_boards
 from . import capture
-from .search import expectimax_scores
+from .search import BF16Leaves, SearchCoefs, expectimax_scores
 
 
 class PlayResult(NamedTuple):
@@ -136,8 +136,8 @@ class Trajectory(NamedTuple):
     board_before: torch.Tensor  # (T, N, 4, 4) int8
     board_after: torch.Tensor  # (T, N, 4, 4) int8 (after the spawn)
     action: torch.Tensor  # (T, N) int8, the action taken
-    target_action: torch.Tensor  # (T, N) int8 (== action; no expert)
-    target_probs: torch.Tensor  # (T, N, 4) float32 one-hot of target_action
+    target_action: torch.Tensor  # (T, N) int8: the expert's argmax, else == action
+    target_probs: torch.Tensor  # (T, N, 4) float32 expert's soft target, else one-hot
     logprobs: torch.Tensor  # (T, N, 4) float32
     action_mask: torch.Tensor  # (T, N, 4) bool, True = invalid
     value_pred: torch.Tensor  # (T, N) float32
@@ -181,6 +181,8 @@ def rollout(model, num_envs: int, max_steps: int, *,
             action_generator: torch.Generator | None = None,
             env_generator: torch.Generator | None = None,
             greedy: bool = False, expert_depth: int = 0,
+            expert_coefs: SearchCoefs | None = None, expert_mix: float = 1.0,
+            expert_tau: float = 0.0, expert_model=None, expert_bf16: bool = False,
             boards: torch.Tensor | None = None,
             actions: torch.Tensor | None = None,
             spawns: torch.Tensor | None = None) -> Trajectory:
@@ -193,13 +195,32 @@ def rollout(model, num_envs: int, max_steps: int, *,
     ``actions`` (T, N) and ``spawns`` (T, 2, N) (``engine.spawn_tile``
     draws). One merge launch a trip (``engine.step`` hands back the next
     boards' moves); the loop reads ``alive.any()`` once a trip, to stop when
-    every game has ended. Expert iteration (``expert_depth > 0``) is not
-    ported yet."""
-    if expert_depth > 0:
-        raise NotImplementedError("rollout(expert_depth > 0): expert iteration is "
-                                  "not yet ported (ROADMAP.md)")
+    every game has ended.
+
+    Expert iteration (``expert_depth > 0``): every trip, the
+    ``expert_depth``-ply ``expectimax_scores`` of all N boards under
+    ``expert_coefs`` (default ``SearchCoefs()``), with the trip's own moves,
+    by ``expert_model`` (a frozen teacher in eval mode; default the policy
+    itself), wrapped in :class:`BF16Leaves` under ``expert_bf16`` unless it
+    already is. ``target_action`` is the scores' first argmax;
+    ``target_probs`` is ``softmax(scores / (sigma * expert_tau))`` with the
+    illegal entries zeroed (a row with no legal move all zeros) when
+    ``expert_tau > 0``, else its one-hot. The first ``round(expert_mix *
+    N)`` envs take ``target_action``, the others the policy's sample (or
+    ``actions``); with no policy env, no action is drawn. The policy's
+    logprobs, entropy and value are recorded as without an expert."""
     if model.training:
         raise ValueError("rollout runs the policy in eval mode")
+    teacher = None
+    if expert_depth > 0:
+        teacher = model if expert_model is None else expert_model
+        if teacher.training:
+            raise ValueError("the expert's model runs in eval mode")
+        if expert_bf16 and not isinstance(teacher, BF16Leaves):
+            teacher = BF16Leaves(teacher)
+        coefs = SearchCoefs() if expert_coefs is None else expert_coefs
+        # Python's round (half to even), as the reference rounds.
+        n_expert = int(round(expert_mix * num_envs))
     n, cap = num_envs, max_steps
     device = next(model.parameters()).device
     if boards is None:
@@ -217,12 +238,31 @@ def rollout(model, num_envs: int, max_steps: int, *,
         invalid = moves.action_mask
         logits, value = model(encode_boards(boards))
         masked, logprobs, entropy = masked_policy(logits, invalid)
-        if actions is not None:
-            action = actions[t].long()
-        elif greedy:
-            action = masked.argmax(-1)
+        if teacher is not None:
+            scores = expectimax_scores(teacher, boards, moves, coefs, expert_depth)
+            target = scores.argmax(-1)
+            if expert_tau > 0:
+                z = scores / (coefs.sigma * expert_tau)
+                z = z.masked_fill(invalid.all(-1, keepdim=True), 0.0)
+                target_probs = torch.softmax(z, dim=-1).masked_fill(invalid, 0.0)
+            else:
+                target_probs = F.one_hot(target, 4)
+            if n_expert >= n:
+                action = target
+            else:
+                sampled = (actions[t].long() if actions is not None else torch.multinomial(
+                    logprobs.exp(), 1, generator=action_generator)[:, 0])
+                action = torch.where(torch.arange(n, device=device) < n_expert, target,
+                                     sampled)
         else:
-            action = torch.multinomial(logprobs.exp(), 1, generator=action_generator)[:, 0]
+            if actions is not None:
+                action = actions[t].long()
+            elif greedy:
+                action = masked.argmax(-1)
+            else:
+                action = torch.multinomial(logprobs.exp(), 1,
+                                           generator=action_generator)[:, 0]
+            target, target_probs = action, F.one_hot(action, 4)
         mono_b, empt_b = heuristics.monotonicity(boards), heuristics.emptiness(boards)
         draws = (spawns[t] if spawns is not None
                  else engine.spawn_draws((n,), env_generator, device))
@@ -236,8 +276,8 @@ def rollout(model, num_envs: int, max_steps: int, *,
         # below with ``valid``, as the JAX loop writes only alive lanes.
         for k, v in (
                 ("board_before", boards), ("board_after", res.board),
-                ("action", action), ("target_action", action),
-                ("target_probs", F.one_hot(action, 4)), ("logprobs", logprobs),
+                ("action", action), ("target_action", target),
+                ("target_probs", target_probs), ("logprobs", logprobs),
                 ("action_mask", invalid), ("value_pred", value[..., 0]),
                 ("entropy", entropy), ("points", res.reward),
                 ("preview", moves.preview_rewards), ("max_created", res.max_created),

@@ -17,18 +17,25 @@ The recursion is eager: where the JAX package sweeps the 32 spawn slots of a
 chance node with ``jax.lax.map``, this module loops over them in Python, each
 slot one batched subproblem over all M merged boards, so the peak memory is
 that of one slot, as in the reference.
+
+``sigma`` and ``mu`` may be Python floats (a finished checkpoint's
+calibration) or 0-d tensors on the boards' device (the live moments of
+expert iteration, :func:`coefs_from_moments`), which the host never reads.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
+from torch import nn
 
 from .. import NUM_CELLS
 from ..env import engine
 from ..env import heuristics as H
 from ..models.encoding import encode_boards
+from .advantage import corrected_mu_std
 
 NUM_SPAWNS = 2 * NUM_CELLS  # 16 cells x {exp 1 (p=.9), exp 2 (p=.1)}
 SPAWN_P_ONE = engine.SPAWN_P_TWO  # probability of exponent 1 (a "2" tile)
@@ -45,6 +52,36 @@ class SearchCoefs(NamedTuple):
     sigma: float = 1.0    # RTG std: denormalizes the critic
     mu: float = 0.0       # RTG mean
     gamma: float = 0.99
+
+
+def coefs_from_moments(moments, rtg_step: int, points: float, mono: float,
+                       empt: float, gamma: float, rtg_beta: float) -> SearchCoefs:
+    """SearchCoefs from the live streaming RTG moments: the bias-corrected
+    mean and std (variance floored at 1e-8) the learner normalises with at
+    1-indexed step ``rtg_step`` (``advantage.corrected_mu_std``), as 0-d
+    tensors on the moments' device, so no host sync."""
+    mu, sigma = corrected_mu_std(moments, rtg_beta, rtg_step)
+    return SearchCoefs(points=points, mono=mono, empt=empt, sigma=sigma, mu=mu,
+                       gamma=gamma)
+
+
+class BF16Leaves(nn.Module):
+    """``model`` as the JAX package's bf16 search leaves compute it: its
+    input and floating parameters rounded to bfloat16, every operation in
+    float32 (the reference casts the input to bf16, its ``apply`` casts it
+    back to f32, and f32 x bf16 products promote to f32). A copy: later
+    changes to ``model`` do not reach it."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = copy.deepcopy(model)
+        with torch.no_grad():
+            for q in self.model.parameters():
+                if q.is_floating_point():
+                    q.copy_(q.to(torch.bfloat16).to(q.dtype))
+
+    def forward(self, inputs: torch.Tensor) -> tuple:
+        return self.model(inputs.to(torch.bfloat16).to(torch.float32))
 
 
 def potential(boards: torch.Tensor, coefs: SearchCoefs) -> torch.Tensor:

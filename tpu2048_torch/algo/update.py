@@ -1,7 +1,8 @@
-"""The learner: shuffled minibatch PPO epochs with an optimizer step per
-minibatch (counterpart of ``tpu2048/algo/update.py``: ``Dataset``,
-``OptimizeStats``, ``make_optimize_fn``), for the MLP and the URM alike
-(``model(inputs, dropout_generator)`` in train mode).
+"""The learner: shuffled minibatch epochs of the PPO or the imitation
+objective, with an optimizer step per minibatch (counterpart of
+``tpu2048/algo/update.py``: ``Dataset``, ``OptimizeStats``,
+``make_optimize_fn``), for the MLP and the URM alike (``model(inputs,
+dropout_generator)`` in train mode).
 
  * The optimizer steps once per MINIBATCH; the learning-rate schedule ticks
    once per train step (the multiplier is an input).
@@ -15,6 +16,8 @@ minibatch (counterpart of ``tpu2048/algo/update.py``: ``Dataset``,
    minibatch that draws it (advantage and normalised return reused).
  * After each step an optional second forward gives the KL(old || new)
    diagnostic (on by default; the expG recipe turns it off).
+ * An optional anchor adds ``strength * KL(anchor || policy)`` per row to
+   the loss: the KL trust region against a frozen policy.
 
 The minibatch count is read on the host once per call (one sync); the
 minibatches are then a Python loop. A dataset smaller than one minibatch,
@@ -24,6 +27,7 @@ shorter minibatch.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -37,7 +41,9 @@ from . import losses
 class Dataset(NamedTuple):
     """Flat training rows: the S_real real rows, and the lazy augmentation
     plan (``aug_src``/``aug_tf``) whose rows extend ``valid`` to
-    S_cap = S_real + A. Without a plan, S_cap = S_real."""
+    S_cap = S_real + A. Without a plan, S_cap = S_real. ``target_probs``,
+    the expert's soft targets, feeds the imitation objective (PPO reads
+    none; without it imitation takes the one-hot of ``action``)."""
 
     board_before: torch.Tensor  # (S_real, 4, 4) int8
     action: torch.Tensor  # (S_real,) int
@@ -46,6 +52,7 @@ class Dataset(NamedTuple):
     G_norm: torch.Tensor  # (S_real,) float32
     logprobs: torch.Tensor  # (S_real, 4) float32
     valid: torch.Tensor  # (S_cap,) bool
+    target_probs: torch.Tensor | None = None  # (S_real, 4) float32
     aug_src: torch.Tensor | None = None  # (A,) int
     aug_tf: torch.Tensor | None = None  # (A,) int
 
@@ -64,9 +71,12 @@ class OptimizeStats(NamedTuple):
 
 
 def _minibatch(ds: Dataset, rows: torch.Tensor) -> dict:
-    """The rows' fields; virtual rows made from their source rows."""
+    """The rows' fields; virtual rows made from their source rows, their
+    action vectors (mask, logprobs, target_probs) permuted with the board."""
     fields = dict(board=ds.board_before, action=ds.action, mask=ds.action_mask,
                   advantage=ds.advantage, rtg=ds.G_norm, logprobs=ds.logprobs)
+    if ds.target_probs is not None:
+        fields["target_probs"] = ds.target_probs
     if ds.aug_src is None:
         return {k: v[rows] for k, v in fields.items()}
     s_real, a = ds.board_before.shape[0], ds.aug_src.shape[0]
@@ -75,23 +85,38 @@ def _minibatch(ds: Dataset, rows: torch.Tensor) -> dict:
     src = torch.where(is_aug, ds.aug_src[a_idx], rows)
     tf = torch.where(is_aug, ds.aug_tf[a_idx], symmetry.IDENTITY)
     raw = {k: v[src] for k, v in fields.items()}
-    return dict(raw,
-                board=symmetry.transform_board(raw["board"], tf),
-                action=symmetry.transform_action(raw["action"], tf),
-                mask=symmetry.transform_action_vector(raw["mask"], tf),
-                logprobs=symmetry.transform_action_vector(raw["logprobs"], tf))
+    out = dict(raw, board=symmetry.transform_board(raw["board"], tf),
+               action=symmetry.transform_action(raw["action"], tf))
+    for k in ("mask", "logprobs", "target_probs"):
+        if k in raw:
+            out[k] = symmetry.transform_action_vector(raw[k], tf)
+    return out
+
+
+LOSSES = {"ppo": losses.ppo_loss, "imitation": losses.imitation_loss,
+          "imitation_sharp": partial(losses.imitation_loss, sharp=True)}
 
 
 def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
-                     batch_size: int, epochs: int, kl_diagnostic: bool = True):
+                     batch_size: int, epochs: int, kl_diagnostic: bool = True,
+                     objective: str = "ppo", anchor: tuple | None = None):
     """``optimize(opt_state, dataset, beta, critic_strength, schedule_mult, *,
     perm_generator, dropout_generator, perm_draws=None) -> OptimizeStats``,
     training ``model`` (its parameters in place, in train mode) and
     ``opt_state``.
 
+    ``objective`` names the loss in :data:`LOSSES`: ``"ppo"``, or expert
+    iteration's ``"imitation"`` / ``"imitation_sharp"``
+    (``losses.imitation_loss``). ``anchor`` = ``(anchor_model, strength)``,
+    a frozen policy in eval mode, adds ``strength * KL(anchor || policy)``
+    (the mean of ``losses.kl_old_new``, the anchor's logits without
+    gradient) to each minibatch's loss; the ``loss`` statistic includes it,
+    as the reference's does.
+
     ``perm_draws`` (epochs, S_cap) replaces the epochs' uniform draws, so a
     test can replay another shuffle; ``dropout_generator`` draws the dropout
     masks (unused at dropout 0)."""
+    loss_impl = LOSSES[objective]
     params = dict(model.named_parameters())
     names = list(params)
 
@@ -119,10 +144,17 @@ def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
                 weights = ((idx >= logical_start) & (idx < s)).to(torch.float32)
                 inputs = encode_boards(batch["board"].to(torch.int32))
                 logits, values = model(inputs, dropout_generator)
-                loss, lstats = losses.ppo_loss(
+                loss, lstats = loss_impl(
                     logits, values, batch["action"], batch["mask"],
                     batch["advantage"], batch["rtg"], batch["logprobs"], weights,
-                    kl_strength=beta, critic_strength=critic_strength)
+                    kl_strength=beta, critic_strength=critic_strength,
+                    target_probs=batch.get("target_probs"))
+                if anchor is not None:
+                    anchor_model, strength = anchor
+                    with torch.no_grad():
+                        a_logits, _ = anchor_model(inputs)
+                    loss = loss + strength * losses.kl_old_new(
+                        a_logits, logits, batch["mask"], weights)[1]
                 # A parameter the loss does not reach (the URM's init_hidden
                 # under truncated backprop) gets a zero gradient, as jax.grad
                 # gives it.
@@ -140,7 +172,7 @@ def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
                     st["kl_total"] = st["kl_total"] + kl_sum
                     st["kl_avg"] = st["kl_avg"] + kl_mean
                     st["kl_max"] = torch.maximum(st["kl_max"], kl_max)
-                st["loss"] = st["loss"] + lstats.loss
+                st["loss"] = st["loss"] + loss.detach()
                 st["policy"] = st["policy"] + lstats.policy_loss
                 st["ent_loss"] = st["ent_loss"] + lstats.entropy_loss
                 st["value"] = st["value"] + lstats.value_loss

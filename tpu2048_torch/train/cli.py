@@ -1,11 +1,13 @@
-"""CLI of the port: ``train`` (the single-device PPO trainer, MLP or URM,
-exact-episodes or packed) and ``evaluate``.
+"""CLI of the port: ``train`` (the single-device trainer, MLP or URM,
+exact-episodes or packed, PPO or expert iteration) and ``evaluate``.
 
     python -m tpu2048_torch.train.cli train --packed --lanes 512 \
         --horizon 256 --batch-size 4096 ... [--viz-dir DIR] \
         [--resume] [--device cuda|cpu]
     python -m tpu2048_torch.train.cli train --episodes 512 \
         --batch-size 4096 -H 196 ... [--resume] [--device cuda|cpu]
+    python -m tpu2048_torch.train.cli train --episodes 32 ... --expert-iter \
+        --expert-depth 2 [--expert-src DIR] [--expert-bf16] [--anchor-kl S]
     python -m tpu2048_torch.train.cli evaluate <checkpoint dir> --games N \
         [--greedy] [--seed S] [--env-seed S] [--device cuda|cpu] \
         [--search [--search-depth 1|2|3] [--search-prune K] [--search-bf16]]
@@ -114,7 +116,9 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
              "each eager step as it runs it and reads the step's scalars "
              "once, after all of its work is enqueued")
     add("--expert-iter", dest="expert_iter", action="store_true",
-        help="Expert iteration (not yet ported)")
+        help="Expert iteration: an expectimax teacher labels every state of "
+             "exact-episode rollouts and drives --expert-mix of the games; the "
+             "policy trains on the imitation objective")
     add("--expert-depth", dest="expert_depth", type=int, default=1, choices=(1, 2))
     add("--expert-mix", dest="expert_mix", type=float, default=0.5)
     add("--expert-tau", dest="expert_tau", type=float, default=0.02)
@@ -122,8 +126,8 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     add("--expert-src", dest="expert_src", default=None)
     add("--expert-bf16", dest="expert_bf16", action="store_true")
     add("--anchor-kl", dest="anchor_kl", type=float, default=0.0,
-        help="KL trust region against the run-start policy (> 0 is not yet "
-             "ported)")
+        help="KL trust region: strength of KL(run-start policy || policy) "
+             "added to the loss")
     add("--coordinator-address", dest="coordinator_address", default=None,
         help="Multi-host training (not yet ported)")
     add("--num-processes", dest="num_processes", type=int, default=None,

@@ -7,7 +7,6 @@ MLP and URM checkpoints; greedy, sampled, or by expectimax search.
 
 from __future__ import annotations
 
-import copy
 import json
 import sys
 import zipfile
@@ -15,11 +14,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import resolve_device
 from ..algo.rollout import play
-from ..algo.search import SearchCoefs
+from ..algo.search import BF16Leaves, SearchCoefs
 from ..env import engine
 from ..models.mlp import GameMLP, MLPConfig
 from ..models.urm import GameURM, URMConfig
@@ -132,24 +130,6 @@ def load_search_coefs(path) -> SearchCoefs:
               f"scores will NOT match the trained objective.",
               file=sys.stderr, flush=True)
         return SearchCoefs()
-
-
-class BF16Leaves(nn.Module):
-    """``model`` as the JAX package's bf16 search leaves compute it: its
-    input and floating parameters rounded to bfloat16, every operation in
-    float32 (the reference casts the input to bf16, its ``apply`` casts it
-    back to f32, and f32 x bf16 products promote to f32)."""
-
-    def __init__(self, model: nn.Module):
-        super().__init__()
-        self.model = copy.deepcopy(model)
-        with torch.no_grad():
-            for q in self.model.parameters():
-                if q.is_floating_point():
-                    q.copy_(q.to(torch.bfloat16).to(q.dtype))
-
-    def forward(self, inputs: torch.Tensor) -> tuple:
-        return self.model(inputs.to(torch.bfloat16).to(torch.float32))
 
 
 def _chunk_generator(env_seed: int, chunk: int, device) -> torch.Generator:

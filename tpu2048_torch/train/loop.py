@@ -1,5 +1,6 @@
-"""The single-device PPO trainer (counterpart of the single-device path of
-``tpu2048/train/loop.py``), for the MLP and the URM.
+"""The single-device trainer (counterpart of the single-device path of
+``tpu2048/train/loop.py``), for the MLP and the URM: PPO, or expert
+iteration (``--expert-iter``).
 
 One train step:
 
@@ -8,10 +9,15 @@ One train step:
      place, the best completed episode recorded on the device unless
      ``--no-packed-capture``) or the exact-episodes ``rollout`` (the
      default: ``--episodes`` games from fresh boards, each to its end or
-     ``rollout_cap`` moves, one merge launch a step);
+     ``rollout_cap`` moves, one merge launch a step). Under
+     ``--expert-iter`` the exact rollout also runs the expectimax teacher
+     on every board of every trip: a frozen checkpoint (``--expert-src``)
+     or the policy itself with coefs from the live moments;
   2. ``process``: returns-to-go and advantage, the augmentation plan, the
-     PPO minibatches with a Muon+AdamW step each, the batch statistics,
-     stacked into one tensor that the host reads once.
+     PPO (or imitation, under ``--expert-iter``) minibatches with a
+     Muon+AdamW step each, with the KL trust region against the run-start
+     policy under ``--anchor-kl``, the batch statistics, stacked into one
+     tensor that the host reads once.
 
 plus the episode breakdown and last steps at print cadence and the viz JSON
 (``--viz-dir``) at print cadence and on a new high, from the step's best
@@ -32,13 +38,13 @@ constant through a run, so a run interrupted and resumed is bit-identical
 on the CPU to one that was not, and a train state the JAX package wrote
 resumes here. The streams themselves differ from the JAX package's.
 
-Expert iteration, ``--anchor-kl``, the mesh, ``--export-demo`` and wandb are
-not ported; a configuration that asks for one raises
-``NotImplementedError`` (:func:`check_ported`).
+The mesh, ``--export-demo`` and wandb are not ported; a configuration that
+asks for one raises ``NotImplementedError`` (:func:`check_ported`).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import asdict, dataclass
 from typing import Callable, Optional
@@ -51,6 +57,7 @@ from ..algo import advantage as A
 from ..algo import augment as AUG
 from ..algo import capture as CAPT
 from ..algo import rollout as R
+from ..algo import search
 from ..algo import update as U
 from ..env import engine, heuristics
 from ..models import mlp, urm
@@ -164,12 +171,14 @@ class TrainConfig:
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` naming every flag of ``cfg`` whose
-    feature the port does not have yet; nothing is silently ignored."""
+    feature the port does not have yet; nothing is silently ignored. A
+    configuration the reference refuses raises ``ValueError``."""
     if cfg.model_type.lower() not in ("mlp", "urm"):
         raise ValueError(f"Unknown model type: {cfg.model_type}. Use 'mlp' or 'urm'.")
+    if cfg.packed and cfg.expert_iter:
+        raise ValueError("--packed does not support --expert-iter (the expert "
+                         "searcher needs exact-episode rollouts)")
     unported = [flag for flag, on in (
-        ("--expert-iter", cfg.expert_iter),
-        ("--anchor-kl > 0", cfg.anchor_kl > 0),
         ("--mesh-data > 1", cfg.mesh_data > 1),
         ("--export-demo", cfg.export_demo),
         ("--wandb", cfg.use_wandb),
@@ -210,6 +219,43 @@ def build_model(cfg: TrainConfig, generator: torch.Generator | None = None) -> t
                        dropout=cfg.dropout, decouple_critic=cfg.decouple_critic)
     model = mlp.GameMLP(mc, zero_heads=True, generator=generator)
     return mc, model, mlp.param_labels(model)
+
+
+def objective(cfg: TrainConfig) -> str:
+    """The learner's loss (``update.LOSSES``) under ``cfg``."""
+    if not cfg.expert_iter:
+        return "ppo"
+    return "imitation_sharp" if cfg.expert_sharp else "imitation"
+
+
+def load_teacher(cfg: TrainConfig, device) -> tuple:
+    """(the frozen teacher of ``--expert-src`` on ``device``, in eval mode
+    without gradients, wrapped once in ``BF16Leaves`` under
+    ``--expert-bf16``; its ``SearchCoefs``). An MLP or a URM checkpoint."""
+    from .evaluate import load_model_checkpoint, load_search_coefs
+
+    teacher, _, _ = load_model_checkpoint(cfg.expert_src, device)
+    teacher.requires_grad_(False)
+    if cfg.expert_bf16:
+        teacher = search.BF16Leaves(teacher).eval()
+    return teacher, load_search_coefs(cfg.expert_src)
+
+
+def expert_args(cfg: TrainConfig, teacher, teacher_coefs, moments, rtg_step: int) -> dict:
+    """``rollout``'s expert keyword arguments for 1-indexed train step
+    ``rtg_step`` (none without ``--expert-iter``). Without a frozen
+    ``teacher`` the policy teaches, with coefs from the step's moments (a
+    fresh bf16 copy of it each step under ``--expert-bf16``)."""
+    if not cfg.expert_iter:
+        return {}
+    coefs = teacher_coefs
+    if teacher is None:
+        coefs = search.coefs_from_moments(
+            moments, rtg_step, cfg.points_weight, cfg.monotonicity_weight,
+            cfg.emptiness_weight, cfg.gamma, cfg.rtg_beta)
+    return dict(expert_depth=cfg.expert_depth, expert_coefs=coefs,
+                expert_mix=cfg.expert_mix, expert_tau=cfg.expert_tau,
+                expert_model=teacher, expert_bf16=cfg.expert_bf16)
 
 
 _EXTRA_SCALARS = ("sched_mult", "batch_max_score", "batch_avg_score",
@@ -259,7 +305,7 @@ def make_process_fn(cfg: TrainConfig, optimize_fn):
                     action=fb(traj.target_action).long(),
                     action_mask=fb(traj.action_mask),
                     advantage=fb(adv["advantage"]), G_norm=fb(adv["G_norm"]),
-                    logprobs=fb(traj.logprobs))
+                    logprobs=fb(traj.logprobs), target_probs=fb(traj.target_probs))
         if num_slots > 0:
             if aug_plan is None:
                 n_valid = flat_valid.sum()
@@ -650,8 +696,26 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
             if best is not None and capture_on:
                 recorder = recorder._replace(**best)
 
+    # The KL trust region's anchor: the policy as the run starts (after a
+    # resume), frozen.
+    anchor = None
+    if cfg.anchor_kl > 0.0:
+        anchor = (copy.deepcopy(model).eval().requires_grad_(False), cfg.anchor_kl)
+        logger.print(f"Anchor KL trust region: strength {cfg.anchor_kl} "
+                     "vs the run-start policy")
+    teacher = teacher_coefs = None
+    if cfg.expert_iter and cfg.expert_src:
+        teacher, teacher_coefs = load_teacher(cfg, device)
+        logger.print(f"Expert iteration: FROZEN depth-{cfg.expert_depth} expectimax "
+                     f"teacher from {cfg.expert_src} (sigma={teacher_coefs.sigma:.1f}, "
+                     f"mu={teacher_coefs.mu:.1f})")
+    elif cfg.expert_iter:
+        logger.print(f"Expert iteration: depth-{cfg.expert_depth} expectimax rollout, "
+                     "imitation + value objective")
+
     optimize_fn = U.make_optimize_fn(model, labels, opt_cfg, cfg.batch_size,
-                                     cfg.ppo_epochs, kl_diagnostic=cfg.kl_diagnostic)
+                                     cfg.ppo_epochs, kl_diagnostic=cfg.kl_diagnostic,
+                                     objective=objective(cfg), anchor=anchor)
     process_fn = make_process_fn(cfg, optimize_fn)
     eval_fn = make_eval_fn(cfg) if cfg.eval_freq else None
     heur_fn = make_episode_heuristics_fn()
@@ -694,7 +758,8 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
             traj = R.rollout(
                 model, cfg.num_episodes, cfg.rollout_cap,
                 action_generator=make_generator(device, *key, train_step, ACTION),
-                env_generator=make_generator(device, *key, train_step, EXACT_ENV))
+                env_generator=make_generator(device, *key, train_step, EXACT_ENV),
+                **expert_args(cfg, teacher, teacher_coefs, moments, train_step + 1))
         t1 = time.perf_counter()
         gens = {s: make_generator(device, *key, train_step, s)
                 for s in (AUGMENT, PERMUTE, DROPOUT)}
