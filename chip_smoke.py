@@ -83,12 +83,31 @@ raises and the run exits non-zero:
            scripts/train_expC_ei.sh (the live teacher) with --anchor-kl 0.5,
            capped as above: the live coefs card == CPU, a learner minibatch
            with the anchor card == CPU, the 256-game eval above a floor
+  export_demo  the CLI's export-demo into temporary directories: (a) the
+           sampled best of 16 games of checkpoints_expG, (b) depth-1 search
+           play of 8 games of checkpoints_expA, (c) checkpoints_urm_r5 with
+           --game (a)'s best_game.json: model.onnx, model_weights.json and
+           model_config.json byte-equal to an export of the checkpoint
+           loaded on the CPU; every move of each best game replayed through
+           the plain engine, its points adding up to its score; the best
+           games above floors fixed before the first run
+  play     watch_agent(checkpoints_expA, search=1) for one game: it ends
+           with no legal move, every move legal, the printed final score
+           the board's; human_play on scripted keys ending with q; one merge
+           launch a client move (+ the search's)
+  warmstart  python -m tpu2048_torch.train.warmstart from checkpoints_expA
+           (the expD recipe's prerequisite flags) at expert depths 0 and 1:
+           each train_state read back by the port trainer's loader, at step
+           100, with finite moments, sigma > 0, a zero optimizer state, the
+           key [0, 20260818] and the source's parameters
+  models   python -m tpu2048_torch.models on the card: shapes, finite
+           logits, the JAX package's parameter counts
   kernels  one JSON line per the port's kernels: check, launches (by
            phase), times (at the served batch, and per timed N with the
            launch floor and the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
-after the train_expert_live phase: they count the main path only. The last line is
+after the models phase: they count the main path only. The last line is
 {"ok": true, "device": {...}}. Imports torch, numpy, the standard library and
 the port; never JAX and never the tpu2048 package.
 """
@@ -106,10 +125,12 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 
+from tpu2048_torch import DIRECTION_NAMES
 from tpu2048_torch.algo import advantage as A
 from tpu2048_torch.algo import augment as AUG
 from tpu2048_torch.algo import capture
@@ -120,8 +141,12 @@ from tpu2048_torch.models.encoding import encode_boards
 from tpu2048_torch.ops import merge
 from tpu2048_torch.ops import optimizer as opt
 from tpu2048_torch.serve import PolicyService
+from tpu2048_torch.models import __main__ as models_main
 from tpu2048_torch.train import cli
 from tpu2048_torch.train import loop
+from tpu2048_torch.train import play_cli
+from tpu2048_torch.train import warmstart
+from tpu2048_torch.train.export import export_demo_assets
 from tpu2048_torch.train.evaluate import (evaluate_checkpoint, load_model_checkpoint,
                                           load_search_coefs, run_eval)
 from tpu2048_torch.utils.profiling import device_ms
@@ -276,6 +301,30 @@ EXPERT_CHECK_TRIPS = 2
 # near the end of its schedule barely moves expA's policy).
 EXPERT_MIN_EVAL_AVG = 1000
 EXPERT_LIVE_MIN_EVAL_AVG = 4500
+# The demo export (the CLI's export-demo): sampled best-of on expG, depth-1
+# search play on expA, and the URM with --game (the sampled run's game).
+# Floors on the best game, fixed before the first card run: expG greedy
+# averages 25,985.6875 over 256 games on the card; expA at depth 1
+# averages 8,949 with a median of 7,524 (the JAX package, TPU, BENCH.md).
+DEMO_SAMPLED = ROOT / "checkpoints_expG"
+DEMO_SAMPLED_GAMES = 16
+DEMO_SAMPLED_MIN_BEST = 15000
+DEMO_SEARCH = ROOT / "checkpoints_expA"
+DEMO_SEARCH_GAMES = 8
+DEMO_SEARCH_MIN_BEST = 5000
+DEMO_URM = ROOT / "checkpoints_urm_r5"
+DEMO_ASSETS = ("model.onnx", "model_weights.json", "model_config.json")
+# The terminal clients: one game of expA by depth-1 search, and a human
+# game of scripted keys (an unknown key among them) that ends with q.
+PLAY_SOURCE = ROOT / "checkpoints_expA"
+HUMAN_KEYS = [*"wasdwasdx", "\x1b[A", "\x1b[D", "\x1b[B", "\x1b[C", *"ddsaawsd", "q"]
+# The warm start of the expC/D/E recipes' prerequisites
+# (scripts/train_expD_frozen.sh), at expert depths 0 and 1.
+WARMSTART_SOURCE = ROOT / "checkpoints_expA"
+WARMSTART_FLAGS = ["--train-step", "100", "--gamma", "0.995", "--highest-score", "40520"]
+WARMSTART_KEY = [0, 20260818]
+# python -m tpu2048_torch.models: the JAX package's parameter counts.
+MODELS_PARAMS = {"GameMLP": 11973, "GameURM": 81237}
 
 
 def phase(name: str, t0: float, text: str) -> None:
@@ -1240,6 +1289,232 @@ def train_expert_live_phase(by_phase: dict, device="cuda") -> None:
           f"({run['per_trip']} a trip + 1 a step, eval {run['eval_launches']})")
 
 
+def exponents(values) -> np.ndarray:
+    v = np.asarray(values, np.int64)
+    return np.where(v > 0, np.log2(np.maximum(v, 1)), 0).astype(np.int32)
+
+
+def replay_demo_game(path: Path) -> dict:
+    """A demo ``best_game.json`` through the plain engine (CPU): each move's
+    state_before merges in its direction to a board one spawn (an empty
+    cell turned to a 2 or a 4) short of its state_after, scoring its
+    points; each state_before is the last state_after; the points add up to
+    the score. Returns the game."""
+    game = json.loads(path.read_text())
+    moves = game["moves"]
+    if not moves:
+        raise AssertionError(f"{path}: no moves")
+    before = np.stack([exponents(m["state_before"]) for m in moves])
+    after = np.stack([exponents(m["state_after"]) for m in moves])
+    action = np.array([DIRECTION_NAMES.index(m["action"]) for m in moves])
+    if not np.array_equal(before[1:], after[:-1]):
+        raise AssertionError(f"{path}: a move does not start where the last one ended")
+    ms = engine.all_moves(torch.as_tensor(before))
+    idx = np.arange(len(moves))
+    moved = ms.boards.numpy()[action, idx]
+    if not ms.legal.numpy()[action, idx].all():
+        raise AssertionError(f"{path}: an illegal move")
+    if not np.array_equal(ms.scores.numpy()[action, idx], [m["points_earned"] for m in moves]):
+        raise AssertionError(f"{path}: points differ from the plain merge's")
+    diff = (moved != after).reshape(len(moves), 16)
+    spawned = after.reshape(len(moves), 16)[diff]
+    if not ((diff.sum(1) == 1).all() and (moved.reshape(len(moves), 16)[diff] == 0).all()
+            and np.isin(spawned, (1, 2)).all()):
+        raise AssertionError(f"{path}: a state_after is not its merged board plus one spawn")
+    if sum(m["points_earned"] for m in moves) != game["score"]:
+        raise AssertionError(f"{path}: points add up to "
+                             f"{sum(m['points_earned'] for m in moves)}, score {game['score']}")
+    return game
+
+
+def export_matches_cpu(src: Path, out: Path, cpu_dir: Path) -> None:
+    """The card's exported assets byte-equal to an export of ``src`` loaded
+    on the CPU (model_config.json with the same search coefs)."""
+    model, mcfg, mtype = load_model_checkpoint(str(src), device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_demo_assets(model, mcfg, mtype, None, cpu_dir,
+                           search_coefs=load_search_coefs(str(src)))
+    for name in DEMO_ASSETS:
+        if (out / name).read_bytes() != (cpu_dir / name).read_bytes():
+            raise AssertionError(f"{src.name}: {name} differs from the CPU's export")
+
+
+def export_demo_phase(by_phase: dict, device="cuda") -> None:
+    """export-demo through the CLI: (a) sampled best of 16 on expG, (b)
+    depth-1 search play of 8 games on expA, (c) the URM with (a)'s game;
+    each export == the CPU's, each best game replayed through the plain
+    engine, the floors on the best games."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        game_a = tmp / "a" / "best_game.json"
+        for tag, src, flags in (
+                ("a", DEMO_SAMPLED, ["-n", str(DEMO_SAMPLED_GAMES)]),
+                ("b", DEMO_SEARCH, ["--search", "--search-depth", "1",
+                                    "-n", str(DEMO_SEARCH_GAMES)]),
+                ("c", DEMO_URM, ["--game", str(game_a)])):
+            t1, start = time.perf_counter(), merge.launches
+            ckpt = tmp / f"{tag}_{src.name}"
+            shutil.copytree(src, ckpt)
+            out = tmp / tag
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["export-demo", "--model", str(ckpt), "--output", str(out),
+                          *flags, "--device", device])
+            sync(device)
+            seconds, launches = time.perf_counter() - t1, merge.launches - start
+            names = {p.name for p in out.iterdir()}
+            if names != {"best_game.json", "best_model.npz", "best_model.json", *DEMO_ASSETS}:
+                raise AssertionError(f"export {tag}: wrote {sorted(names)}")
+            export_matches_cpu(src, out, tmp / f"{tag}_cpu")
+            game = replay_demo_game(out / "best_game.json")
+            runs.append(dict(tag=tag, src=src.name, score=game["score"],
+                             moves=len(game["moves"]), launches=launches, seconds=seconds))
+        if json.loads((tmp / "c" / "best_game.json").read_text())["moves"] != \
+                json.loads(game_a.read_text())["moves"]:
+            raise AssertionError("export c: --game did not carry (a)'s moves")
+    by_phase["export_demo"] = merge.launches - before
+    a, b, c = runs
+    if a["score"] < DEMO_SAMPLED_MIN_BEST:
+        raise AssertionError(f"sampled best {a['score']} < {DEMO_SAMPLED_MIN_BEST}")
+    if b["score"] < DEMO_SEARCH_MIN_BEST:
+        raise AssertionError(f"search best {b['score']} < {DEMO_SEARCH_MIN_BEST}")
+    if c["launches"] != 0:
+        raise AssertionError(f"--game made {c['launches']} merge launches")
+    # The exact rollout: one launch a trip and one for the fresh boards;
+    # search play: the search's leaves and the step's next boards a trip,
+    # and one for the fresh boards.
+    a["trips"], b["trips"] = a["launches"] - 1, (b["launches"] - 1) // (search_merges(1) + 1)
+    if (b["launches"] - 1) % (search_merges(1) + 1):
+        raise AssertionError(f"search play: {b['launches']} merge launches")
+    phase("export_demo", t0, "; ".join(
+        f"({r['tag']}) {r['src']}: best game {r['score']} in {r['moves']} moves"
+        + (f", {r['trips']} trips" if "trips" in r else " (--game of (a))")
+        + f", merge launches {r['launches']}, {r['seconds']:.3f} s" for r in runs)
+        + f"; model.onnx, model_weights.json, model_config.json == the CPU's; best games "
+        f"replayed through the plain engine (floors {DEMO_SAMPLED_MIN_BEST} sampled, "
+        f"{DEMO_SEARCH_MIN_BEST} search); merge launches {by_phase['export_demo']}")
+
+
+def play_phase(by_phase: dict, device="cuda") -> None:
+    """The terminal clients on the card: watch_agent on expA by depth-1
+    search for one game, human_play on scripted keys."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = play_cli.watch_agent(str(PLAY_SOURCE), delay=0.0, seed=0, search=1,
+                                   device=device)
+    sync(device)
+    watch_s, watch_launches = time.perf_counter() - t0, merge.launches - before
+    text = buf.getvalue()
+    final = torch.as_tensor(out["final_board"], dtype=torch.int32)[None]
+    if engine.all_moves(final).any_legal.any():
+        raise AssertionError("watch_agent's game ended with a legal move left")
+    score = int(engine.board_scores(final)[0])
+    if f"Final Score: {score}\n" not in text or out["score"] != score:
+        raise AssertionError(f"printed final score is not the board's {score}")
+    grids = torch.as_tensor(np.array([g for g, _ in out["history"]]), dtype=torch.int32)
+    acts = np.array([a for _, a in out["history"]])
+    if not engine.all_moves(grids).legal.numpy()[acts, np.arange(len(acts))].all():
+        raise AssertionError("watch_agent played an illegal move")
+    printed = text.count("\nMove ")
+    if printed != out["moves"] or watch_launches != 1 + 2 * out["moves"]:
+        raise AssertionError(f"{out['moves']} moves: {printed} printed, {watch_launches} "
+                             "merge launches")
+    t1, start = time.perf_counter(), merge.launches
+    keys = iter(HUMAN_KEYS)
+    buf = io.StringIO()
+    # No terminal to clear: the client's clear would write to the smoke's output.
+    with contextlib.redirect_stdout(buf), mock.patch.object(play_cli, "_clear", lambda: None):
+        human = play_cli.human_play(device=device, seed=0, get_key=lambda: next(keys))
+    sync(device)
+    human_s, human_launches = time.perf_counter() - t1, merge.launches - start
+    htext = buf.getvalue()
+    if human["moves"] < 5 or human_launches != 1 + human["moves"] or \
+            "Thanks for playing" not in htext or "Invalid key" not in htext:
+        raise AssertionError(f"human_play: {human['moves']} moves, {human_launches} merge "
+                             "launches")
+    by_phase["play"] = merge.launches - before
+    phase("play", t0, f"watch_agent({PLAY_SOURCE.name}, search=1): {out['moves']} moves, "
+          f"{out['points']} points, final score {score} (the tile sum: printed, the "
+          "board's), every move legal, no move left, "
+          f"{watch_s * 1e3 / out['moves']:.3f} host ms a move, merge launches "
+          f"{watch_launches}; human_play on {len(HUMAN_KEYS)} scripted keys: "
+          f"{human['moves']} moves, {human['points']} points, score "
+          f"{int(engine.board_scores(torch.as_tensor(human['final_board'])[None])[0])}, "
+          f"{human_s * 1e3 / human['moves']:.3f} host ms a move, merge launches "
+          f"{human_launches}; merge launches {by_phase['play']}")
+
+
+def warmstart_phase(by_phase: dict, device="cuda") -> None:
+    """python -m tpu2048_torch.train.warmstart from expA at expert depths 0
+    and 1; each train_state read back by the port trainer's loader."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        src_sd = load_model_checkpoint(str(WARMSTART_SOURCE), device="cpu")[0].state_dict()
+        for depth in (0, 1):
+            t1, start = time.perf_counter(), merge.launches
+            ck = Path(tmp) / f"d{depth}"
+            with contextlib.redirect_stdout(io.StringIO()):
+                mu, m2, n = warmstart.main(["--src-dir", str(WARMSTART_SOURCE),
+                                            "--ckpt-dir", str(ck), *WARMSTART_FLAGS,
+                                            "--expert-depth", str(depth), "--device", device])
+            sync(device)
+            seconds, launches = time.perf_counter() - t1, merge.launches - start
+            model = load_model_checkpoint(str(WARMSTART_SOURCE), device=device)[0]
+            opt_state, moments, key, manifest = loop.load_train_state(ck, model, device)
+            sigma2 = float(moments.m2) - float(moments.mu) ** 2
+            if manifest["train_step"] != 100 or manifest["highest_score"] != 40520:
+                raise AssertionError(f"depth {depth}: manifest {manifest}")
+            if not (math.isfinite(float(moments.mu)) and sigma2 > 0):
+                raise AssertionError(f"depth {depth}: moments {moments}")
+            if key.tolist() != WARMSTART_KEY or key.dtype != np.uint32:
+                raise AssertionError(f"depth {depth}: key {key!r}")
+            if opt_state.step != 0 or any(
+                    bool(v.any()) for part in (opt_state.momentum, opt_state.m, opt_state.v)
+                    for v in part.values()):
+                raise AssertionError(f"depth {depth}: optimizer state not zero")
+            for k, v in model.state_dict().items():
+                if not torch.equal(v.cpu(), src_sd[k]):
+                    raise AssertionError(f"depth {depth}: parameter {k} differs from the source")
+            per_trip = 1 + (search_merges(depth) if depth else 0)
+            trips, rest = divmod(launches - 1, per_trip)
+            if rest:
+                raise AssertionError(f"depth {depth}: {launches} merge launches")
+            lines.append(f"depth {depth}: mu {mu:.3f}, sigma {math.sqrt(m2 - mu * mu):.3f} "
+                         f"over {n} steps, {trips} trips, merge launches {launches}, "
+                         f"{seconds:.3f} s")
+    by_phase["warmstart"] = merge.launches - before
+    phase("warmstart", t0, f"{WARMSTART_SOURCE.name} {' '.join(WARMSTART_FLAGS)}: "
+          + "; ".join(lines) + "; each train_state read back by loop.load_train_state: "
+          f"step 100, finite moments with sigma > 0, a zero optimizer state, key "
+          f"{WARMSTART_KEY} (uint32), the source's parameters; merge launches "
+          f"{by_phase['warmstart']}")
+
+
+def models_phase(by_phase: dict, device="cuda") -> None:
+    """python -m tpu2048_torch.models on the card."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = models_main.main(["--device", device])
+    sync(device)
+    by_phase["models"] = merge.launches - before
+    counts = {k: out[k] for k in MODELS_PARAMS}
+    if counts != MODELS_PARAMS:
+        raise AssertionError(f"parameter counts {counts}, the JAX package's {MODELS_PARAMS}")
+    for k in ("logits", "urm_logits"):
+        if tuple(out[k].shape) != (3, 4) or not torch.isfinite(out[k]).all():
+            raise AssertionError(f"{k}: {out[k]}")
+    phase("models", t0, f"3 fresh boards through GameMLP and GameURM (H=64): logits (3, 4) "
+          f"finite, parameter counts {counts} == the JAX package's; merge launches "
+          f"{by_phase['models']}")
+
+
 def main() -> None:
     # 1. device
     t0 = time.perf_counter()
@@ -1386,8 +1661,12 @@ def main() -> None:
     train_exact_phase(by_phase)
     train_expert_phase(by_phase)
     train_expert_live_phase(by_phase)
+    export_demo_phase(by_phase)
+    play_phase(by_phase)
+    warmstart_phase(by_phase)
+    models_phase(by_phase)
 
-    # 15. kernels
+    # 19. kernels
     t0 = time.perf_counter()
     main_launches = merge.launches
     if main_launches != sum(by_phase.values()):

@@ -339,7 +339,6 @@ def test_resumes_checkpoints_expG_at_full_width(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,named", [
     (["--packed", "--no-packed-capture", "--mesh-data", "2"], "--mesh-data"),
-    (["--packed", "--no-packed-capture", "--export-demo"], "--export-demo"),
     (["--packed", "--no-packed-capture", "--wandb"], "--wandb"),
     (["--packed", "--no-packed-capture", "--num-processes", "2"], "--num-processes"),
     (["--packed", "--no-packed-capture", "--platform", "cpu"], "--platform"),

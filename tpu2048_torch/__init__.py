@@ -14,9 +14,11 @@ Mirrors the module layout of ``tpu2048`` so each counterpart is easy to find:
             expectimax search, advantage, augmentation, PPO losses and the
             learner
   train/    checkpoints (read and write), the single-device PPO trainer,
-            ``evaluate`` (greedy, sampled, search) and the CLI
+            ``evaluate`` (greedy, sampled, search; best-of play for the
+            demo), the demo export, the terminal clients, the warm start
+            and the CLI
   utils/    card timing, training statistics, the metric logger, the
-            episode printers and viz JSON exporters
+            episode printers and viz JSON exporters, the ONNX writer
   serve.py  the HTTP policy server (policy, greedy and search modes)
 
 Imports torch, numpy and the standard library only — never ``jax`` and never

@@ -13,7 +13,7 @@ save leaves the old checkpoint or the new one, never a truncated file.
 
 The port's parameter names are those key paths joined with dots
 (``blocks.0.lin.w``), so carrying weights across is a renaming:
-:func:`params_to_state_dict`.
+:func:`params_to_state_dict`, and back, :func:`state_dict_to_params`.
 """
 
 from __future__ import annotations
@@ -74,6 +74,30 @@ def params_to_state_dict(params: dict) -> dict:
         items = list(_flatten(params))
     return {".".join(map(str, path)): torch.tensor(np.asarray(v))
             for path, v in items}
+
+
+def state_dict_to_params(model) -> dict:
+    """The weight carrier's reverse: a model (or its ``state_dict``) -> the
+    JAX package's params tree, nested dicts and lists of contiguous float32
+    numpy arrays (``tree['blocks'][0]['lin']['w']``). Each tensor is copied
+    to the host once; :func:`params_to_state_dict` gives it back exactly."""
+    sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    tree: dict = {}
+    for name, t in sd.items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().to("cpu", torch.float32, copy=True).contiguous().numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
 
 
 def jax_flatten_order(names) -> list:

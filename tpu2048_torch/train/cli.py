@@ -1,5 +1,7 @@
 """CLI of the port: ``train`` (the single-device trainer, MLP or URM,
-exact-episodes or packed, PPO or expert iteration) and ``evaluate``.
+exact-episodes or packed, PPO or expert iteration), ``evaluate``,
+``export-demo`` (the ``web/`` demo's assets), ``human`` and ``play`` (the
+terminal clients). ``bench`` waits for the port's benchmark.
 
     python -m tpu2048_torch.train.cli train --packed --lanes 512 \
         --horizon 256 --batch-size 4096 ... [--viz-dir DIR] \
@@ -11,10 +13,17 @@ exact-episodes or packed, PPO or expert iteration) and ``evaluate``.
     python -m tpu2048_torch.train.cli evaluate <checkpoint dir> --games N \
         [--greedy] [--seed S] [--env-seed S] [--device cuda|cpu] \
         [--search [--search-depth 1|2|3] [--search-prune K] [--search-bf16]]
+    python -m tpu2048_torch.train.cli export-demo --model <checkpoint dir> \
+        [--output web/data] [-n N] [--seed S] [--search [--search-depth 1|2]] \
+        [--game best_game.json] [--device cuda|cpu]
+    python -m tpu2048_torch.train.cli play [--model DIR] [--delay S] \
+        [--seed S] [--search 0|1|2] [--device cuda|cpu]
+    python -m tpu2048_torch.train.cli human [--seed S] [--device cuda|cpu]
 
 Flags as in ``tpu2048/train/cli.py`` (same names and defaults), plus
-``--device``. A ``train`` flag whose feature is not ported yet raises
-``NotImplementedError`` naming it.
+``--device``. A flag whose feature is not ported yet raises
+``NotImplementedError`` naming it; so does ``--platform``, the JAX
+package's device switch.
 """
 
 from __future__ import annotations
@@ -133,11 +142,21 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     add("--num-processes", dest="num_processes", type=int, default=None,
         help="Multi-host training (> 1 is not yet ported)")
     add("--process-id", dest="process_id", type=int, default=None)
-    add("--platform", default=None,
-        help="The JAX package's platform switch; the port's is --device")
-    add("--device", default="cuda",
-        help="torch device (default cuda; cpu runs the plain merge instead "
-             "of the CUDA kernel)")
+    _add_device_flags(p)
+
+
+def _add_device_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--platform", default=None,
+                   help="The JAX package's platform switch; the port's is --device")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain merge "
+                        "instead of the CUDA kernel)")
+
+
+def _check_platform(args) -> None:
+    if args.platform:
+        raise NotImplementedError(f"--platform {args.platform}: not ported; the "
+                                  "port picks its device with --device")
 
 
 def config_from_args(args):
@@ -147,9 +166,7 @@ def config_from_args(args):
     if args.num_processes and args.num_processes > 1:
         raise NotImplementedError("--num-processes > 1 (multi-host training): "
                                   "not yet ported (ROADMAP.md)")
-    if args.platform:
-        raise NotImplementedError(f"--platform {args.platform}: not ported; the "
-                                  "port picks its device with --device")
+    _check_platform(args)
     from .loop import TrainConfig
 
     field_names = set(TrainConfig.__dataclass_fields__)
@@ -174,6 +191,7 @@ def cmd_train(args) -> None:
 def cmd_evaluate(args) -> None:
     from .evaluate import evaluate_checkpoint
 
+    _check_platform(args)
     if args.search and args.search_depth >= 3 and args.search_prune == 0:
         # The exact depth-3 tree is (4*32)^2 subproblems per move per board:
         # force the tractable default instead of silently wedging.
@@ -186,6 +204,76 @@ def cmd_evaluate(args) -> None:
                         search=args.search, search_depth=args.search_depth,
                         search_prune=args.search_prune,
                         search_bf16=args.search_bf16, device=args.device)
+
+
+def cmd_export_demo(args) -> None:
+    import json
+    import shutil
+    from pathlib import Path
+
+    from .evaluate import (load_model_checkpoint, load_search_coefs, play_best_of,
+                           search_play_best)
+    from .export import export_demo_assets
+
+    _check_platform(args)
+    model, model_cfg, model_type = load_model_checkpoint(args.model_path, args.device)
+    print(f"Model loaded (hidden_dim={model_cfg.hidden_dim}, "
+          f"num_layers={model_cfg.num_layers})")
+    if args.game_path:
+        data = json.loads(Path(args.game_path).read_text())
+        out = Path(args.output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        demo = {"score": data.get("score", 0),
+                "total_steps": data.get("total_steps", len(data.get("moves", []))),
+                "moves": data.get("moves", [])}
+        (out / "best_game.json").write_text(json.dumps(demo, indent=2))
+        print(f"Game exported to {out / 'best_game.json'}")
+        best = play_meta = None
+    elif args.search:
+        coefs = load_search_coefs(args.model_path)
+        print(f"Search play for demo export (depth={args.search_depth}, "
+              f"coefs={coefs})")
+        env_seed = args.seed if args.seed else 12345
+        best = search_play_best(model, num_games=args.num_games, env_seed=env_seed,
+                                coefs=coefs, depth=args.search_depth)
+        play_meta = {"mode": "search", "search_depth": args.search_depth,
+                     "num_games": args.num_games, "env_seed": env_seed}
+    else:
+        best = play_best_of(model, num_games=args.num_games, seed=args.seed)
+        play_meta = {"mode": "sampled", "num_games": args.num_games,
+                     "seed": args.seed}
+    export_demo_assets(model, model_cfg, model_type, best, args.output_dir,
+                       search_coefs=load_search_coefs(args.model_path),
+                       play_meta=play_meta)
+    # The raw checkpoint goes next to the demo assets.
+    src_dir = Path(args.model_path)
+    name = "best_model" if (src_dir / "best_model.npz").exists() else "train_state"
+    for ext in (".npz", ".json"):
+        src = src_dir / f"{name}{ext}"
+        if src.exists():
+            shutil.copy2(src, Path(args.output_dir) / f"best_model{ext}")
+    print(f"\nDemo assets exported to {args.output_dir}/")
+    print("To test locally: cd web && python -m http.server 8000")
+
+
+def cmd_human(args) -> None:
+    from .play_cli import human_play
+
+    _check_platform(args)
+    human_play(device=args.device, seed=args.seed)
+
+
+def cmd_play(args) -> None:
+    from .play_cli import watch_agent
+
+    _check_platform(args)
+    watch_agent(model_path=args.model_path, delay=args.delay, seed=args.seed,
+                search=args.search, device=args.device)
+
+
+def cmd_bench(args) -> None:
+    raise NotImplementedError("bench: not yet ported; it waits for the port's "
+                              "benchmark (ROADMAP.md, Queue 1 item 2)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -207,9 +295,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Argmax actions instead of sampling")
     p_eval.add_argument("--env-seed", dest="env_seed", type=int, default=12345,
                         help="Seed of the fixed eval env stream")
-    p_eval.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; cpu runs the plain "
-                             "merge instead of the CUDA kernel)")
     p_eval.add_argument("--search", action="store_true",
                         help="Expectimax action selection (exact chance "
                              "nodes, critic leaves) instead of the raw policy")
@@ -231,7 +316,51 @@ def build_parser() -> argparse.ArgumentParser:
                              "bfloat16 (as the JAX package runs them: "
                              "bf16-rounded inputs and weights, float32 "
                              "arithmetic; flips only near-tie action choices)")
+    _add_device_flags(p_eval)
     p_eval.set_defaults(fn=cmd_evaluate)
+
+    p_exp = sub.add_parser("export-demo", help="Export demo assets for the web UI")
+    p_exp.add_argument("--model", "-m", dest="model_path", default="checkpoints",
+                       help="Checkpoint dir")
+    p_exp.add_argument("--game", "-g", dest="game_path", default=None,
+                       help="Export this best_game.json instead of playing")
+    p_exp.add_argument("--output", "-o", dest="output_dir", default="web/data")
+    p_exp.add_argument("--num-games", "-n", dest="num_games", type=int, default=10)
+    p_exp.add_argument("--gpu", action="store_true",
+                       help="(accepted for parity; the device is --device)")
+    p_exp.add_argument("--batch-size", "-b", type=int, default=32,
+                       help="(accepted for parity; unused)")
+    p_exp.add_argument("--seed", type=int, default=0,
+                       help="Seed of sampled play; of search play's spawns "
+                            "when nonzero (else 12345)")
+    p_exp.add_argument("--search", action="store_true",
+                       help="Generate the showcase game with expectimax "
+                            "search play instead of sampled policy play")
+    p_exp.add_argument("--search-depth", dest="search_depth", type=int,
+                       default=2, choices=(1, 2))
+    _add_device_flags(p_exp)
+    p_exp.set_defaults(fn=cmd_export_demo)
+
+    p_human = sub.add_parser("human", help="Play 2048 yourself (WASD/arrows)")
+    p_human.add_argument("--seed", type=int, default=0, help="Seed of the spawns")
+    _add_device_flags(p_human)
+    p_human.set_defaults(fn=cmd_human)
+
+    p_play = sub.add_parser("play", help="Watch an agent play")
+    p_play.add_argument("--model", "-m", dest="model_path", default=None)
+    p_play.add_argument("--delay", "-d", type=float, default=0.5)
+    p_play.add_argument("--seed", type=int, default=0,
+                        help="Seed of the spawns, the sampled actions and the "
+                             "untrained agent's weights")
+    p_play.add_argument("--search", type=int, default=0, choices=(0, 1, 2),
+                        help="Expectimax move selection of this depth "
+                             "(0 = sample the policy)")
+    _add_device_flags(p_play)
+    p_play.set_defaults(fn=cmd_play)
+
+    p_bench = sub.add_parser("bench", help="Run the throughput benchmark "
+                             "(not yet ported)")
+    p_bench.set_defaults(fn=cmd_bench)
     return parser
 
 

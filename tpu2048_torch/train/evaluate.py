@@ -1,6 +1,8 @@
 """Standalone evaluation of a checkpoint (counterpart of
 ``tpu2048/train/evaluate.py``: ``load_model_checkpoint``, ``run_eval``,
-``load_search_coefs``, ``run_search_eval`` and ``evaluate_checkpoint``).
+``load_search_coefs``, ``run_search_eval``, ``evaluate_checkpoint``, and
+the demo export's best-of-N play, ``play_best_of`` and
+``search_play_best``).
 
 MLP and URM checkpoints; greedy, sampled, or by expectimax search.
 """
@@ -16,8 +18,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..algo.rollout import play
-from ..algo.search import BF16Leaves, SearchCoefs
+from ..algo.rollout import play, rollout
+from ..algo.search import BF16Leaves, SearchCoefs, expectimax_scores
 from ..env import engine
 from ..models.mlp import GameMLP, MLPConfig
 from ..models.urm import GameURM, URMConfig
@@ -176,6 +178,98 @@ def run_search_eval(model, games: int, max_steps: int = 4096,
     m = _summary(np.concatenate(scores_l), np.concatenate(tiles_l))
     m["steps"] = steps
     return m
+
+
+def play_best_of(model, num_games: int = 10, seed: int = 0, max_steps: int = 4096, *,
+                 boards: torch.Tensor | None = None, actions: torch.Tensor | None = None,
+                 spawns: torch.Tensor | None = None) -> dict:
+    """Play ``num_games`` sampled games (the exact ``rollout``) on the
+    model's device and return the best as the host dict the demo exporter
+    reads (``loop.fetch_episode``). The fresh boards and spawns come from a
+    generator seeded from ``(seed, 0)``, the actions from one seeded from
+    ``(seed, 1)``; a test injects ``boards``, ``actions`` and ``spawns``
+    instead (``rollout``'s arguments)."""
+    from .loop import fetch_episode, make_generator
+
+    device = next(model.parameters()).device
+    traj = rollout(model, num_games, max_steps,
+                   env_generator=make_generator(device, seed, 0),
+                   action_generator=make_generator(device, seed, 1),
+                   boards=boards, actions=actions, spawns=spawns)
+    scores = traj.total_points.cpu().numpy()
+    tiles = engine.max_tile_value(traj.final_board.to(torch.int32)).cpu().numpy()
+    order = np.argsort(scores)[::-1]
+    print(f"Played {num_games} games — avg: {scores.mean():.0f}, "
+          f"best: {scores[order[0]]}, worst: {scores[order[-1]]}")
+    print(f"Max tiles reached: {sorted(set(tiles.tolist()), reverse=True)}")
+    return fetch_episode(traj, None, int(order[0]))
+
+
+@torch.inference_mode()
+def search_play_best(model, num_games: int = 64, env_seed: int = 12345,
+                     coefs: SearchCoefs | None = None, depth: int = 1,
+                     max_steps: int = 4096, *, boards: torch.Tensor | None = None,
+                     spawns: torch.Tensor | None = None) -> dict:
+    """Play ``num_games`` games in lockstep by expectimax (the argmax of
+    ``expectimax_scores`` at ``depth``) and return the best as the host dict
+    the demo exporter reads; entropy is 0, search play being deterministic.
+
+    One move at a time, every transition recorded on the device, copied to
+    the host once at the end; the host reads one flag a move (is any game
+    still moving). The fresh boards and the spawns come from a generator
+    seeded by ``env_seed``, or from ``boards`` (N, 4, 4) and ``spawns``
+    (max_steps, 2, N). A game that has ended has no legal move, so the step
+    leaves its board as it was: the ended boards stay frozen."""
+    device = next(model.parameters()).device
+    coefs = coefs if coefs is not None else SearchCoefs()
+    gen = None if spawns is not None else torch.Generator(device=device).manual_seed(env_seed)
+    if boards is None:
+        boards = engine.reset(num_games, device, generator=gen)
+    moves = engine.all_moves(boards)
+    alive = torch.ones(num_games, dtype=torch.bool, device=device)
+    points = torch.zeros(num_games, dtype=torch.int64, device=device)
+    nmoves = torch.zeros(num_games, dtype=torch.int32, device=device)
+    recs = []  # (boards, action, new boards, reward, step_alive) a move
+    for t in range(max_steps):
+        action = expectimax_scores(model, boards, moves, coefs, depth).argmax(-1)
+        draws = (spawns[t] if spawns is not None
+                 else engine.spawn_draws((num_games,), gen, device))
+        res = engine.step(boards, action, draws, moves=moves)
+        step_alive = alive & moves.any_legal
+        if not bool(step_alive.any()):
+            break
+        reward = torch.where(step_alive, res.reward, 0)
+        recs.append((boards, action, res.board, reward, step_alive))
+        points += reward
+        nmoves += step_alive.to(torch.int32)
+        alive = step_alive & ~res.done
+        boards, moves = res.board, res.moves
+    points, nmoves = points.cpu().numpy(), nmoves.cpu().numpy()
+    best = int(points.argmax())
+    tiles = engine.max_tile_value(boards).cpu().numpy()
+    print(f"Search-played {num_games} games (depth={depth}) — "
+          f"avg: {points.mean():.0f}, best: {points[best]}, "
+          f"max tile: {int(tiles.max())}")
+    lane = ([torch.stack(f)[:, best].cpu().numpy() for f in zip(*recs)] if recs
+            else [[]] * 5)
+    moves_out = [
+        {
+            "selected_direction": int(a),
+            "state_before": b.astype(int).tolist(),
+            "result_state": nb.astype(int).tolist(),
+            "points_earned": int(r),
+            "entropy": 0.0,
+        }
+        for b, a, nb, r, sa in zip(*lane) if sa
+    ]
+    return {
+        "moves": moves_out,
+        "total_points": int(points[best]),
+        # The reference's count: total_steps == len(moves) - 1 for a game
+        # that ended.
+        "total_steps": max(int(nmoves[best]) - 1, 0),
+        "final_state": boards[best].cpu().numpy().astype(int).tolist(),
+    }
 
 
 def evaluate_checkpoint(path, games: int = 100, seed: int = 0,

@@ -38,8 +38,10 @@ constant through a run, so a run interrupted and resumed is bit-identical
 on the CPU to one that was not, and a train state the JAX package wrote
 resumes here. The streams themselves differ from the JAX package's.
 
-The mesh, ``--export-demo`` and wandb are not ported; a configuration that
-asks for one raises ``NotImplementedError`` (:func:`check_ported`).
+At the end of a run, ``--export-demo`` writes the demo's assets to
+``web/data`` (``train/export.py``) with the run's best episode. The mesh
+and wandb are not ported; a configuration that asks for one raises
+``NotImplementedError`` (:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -180,7 +182,6 @@ def check_ported(cfg: TrainConfig) -> None:
                          "searcher needs exact-episode rollouts)")
     unported = [flag for flag, on in (
         ("--mesh-data > 1", cfg.mesh_data > 1),
-        ("--export-demo", cfg.export_demo),
         ("--wandb", cfg.use_wandb),
     ) if on]
     if unported:
@@ -852,6 +853,14 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
         # overwrite the further-along checkpoint with step cfg.steps - 1 (the
         # step drives the moments' bias correction).
         save_train_state(cfg.steps - 1)
+
+    if cfg.export_demo:
+        from .evaluate import load_search_coefs
+        from .export import export_demo_assets
+
+        logger.print("\nExporting demo assets to web/data/ ...")
+        export_demo_assets(model, model_cfg, cfg.model_type, best_game_episode,
+                           "web/data", search_coefs=load_search_coefs(cfg.checkpoint_dir))
     logger.close()
     return dict(model=model, moments=moments, highest_score=highest_score,
                 best_game_episode=best_game_episode, recorder=recorder, emas=emas,
