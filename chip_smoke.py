@@ -59,6 +59,18 @@ raises and the run exits non-zero:
            train_state reads back, the JAX run's recorded best episode is
            restored and kept in the env_carry it writes, and replays
            through the plain engine
+  train_dp  the data-parallel step (train/loop.py's make_sharded_train_step
+           over a tpu2048_torch/parallel/ process group) of the same
+           recipe and state at its full width, steps 20000-20001: (a) one
+           NCCL rank against the step without a group (counts exact,
+           moments to 1e-6, parameters to 1e-4); (b) two spawned ranks
+           sharing the card over Gloo, 256 lanes and a 2,048 batch each:
+           parameters bit-identical on both after each step, 131,072 env
+           steps, the moments equal to a host recomputation over both
+           ranks' records (1e-4), fresh lanes' completed episodes above a
+           floor, 1,024 merge launches a rank; (c) the same over NCCL, one
+           rank a card, when the machine has two cards. Host seconds a step
+           (beside train_resume's), collectives and their bytes and host ms
   train_urm  a copy of checkpoints_urm_r5 (the URM, step 449, 4,096 lanes)
            resumed for 2 steps of scripts/train_urm_long.sh with one eval
            of 32 sampled games: completed episodes and the eval above
@@ -107,7 +119,8 @@ raises and the run exits non-zero:
            launch floor and the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
-after the models phase: they count the main path only. The last line is
+after the models phase: they count the main path only (train_dp's spawned
+ranks count in their own processes and report theirs). The last line is
 {"ok": true, "device": {...}}. Imports torch, numpy, the standard library and
 the port; never JAX and never the tpu2048 package.
 """
@@ -117,6 +130,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -140,6 +154,7 @@ from tpu2048_torch.env import engine
 from tpu2048_torch.models.encoding import encode_boards
 from tpu2048_torch.ops import merge
 from tpu2048_torch.ops import optimizer as opt
+from tpu2048_torch.parallel import mesh as pmesh
 from tpu2048_torch.serve import PolicyService
 from tpu2048_torch.models import __main__ as models_main
 from tpu2048_torch.train import cli
@@ -325,6 +340,33 @@ WARMSTART_FLAGS = ["--train-step", "100", "--gamma", "0.995", "--highest-score",
 WARMSTART_KEY = [0, 20260818]
 # python -m tpu2048_torch.models: the JAX package's parameter counts.
 MODELS_PARAMS = {"GameMLP": 11973, "GameURM": 81237}
+# train_dp: the data-parallel step (over a tpu2048_torch/parallel/ group) at the expG
+# recipe's full width, from checkpoints_expG's step-19,999 state, steps
+# 20000-20001 at the saved entropy weight. (a) one NCCL rank against the
+# step without a group: counts exact, moments to DP_SINGLE_RTOL, parameters
+# to DP_SINGLE_ATOL (bf16 Newton-Schulz, as the learner check allows).
+# (b) two Gloo ranks sharing the card, 256 lanes and a 2,048 batch each:
+# parameters bit-identical, moments against a host recomputation over both
+# ranks' records to DP_HOST_RTOL.
+DP_STEPS = (20000, 20001)
+DP_SINGLE_RTOL = 1e-6
+DP_SINGLE_ATOL = 1e-4
+DP_HOST_RTOL = 1e-4
+DP_RANKS = 2
+EXACT_SCALARS = ("samples", "augmented_samples", "batch_max_score", "pct_512", "pct_1024",
+                 "pct_2048", "best_idx", "env_steps", "num_batches")
+DP_RANK_TIMEOUT_S = 600
+# Floor fixed before the first card run. The checkpoint's env_carry is of
+# one rank (sharded_d 1), so two ranks start fresh boards, as the JAX
+# package does, and complete only the games that end within 512 moves:
+# half of what this phase's full-width rehearsal on the CPU averaged
+# (5,402.3 over 42 episodes): a policy wrecked by a wrong step falls far below.
+DP_MIN_EPISODE_AVG = 2500
+# Merge launches the spawned ranks made on the main path, by phase: they
+# count in their own processes.
+REMOTE_LAUNCHES: dict = {}
+# Host seconds of each step of train_resume, beside train_dp's.
+STEP_SECONDS: dict = {}
 
 
 def phase(name: str, t0: float, text: str) -> None:
@@ -878,6 +920,7 @@ def train_resume_phase(by_phase: dict, device="cuda") -> None:
         final = {n: p.detach() for n, p in model.named_parameters()}
     if [s["step"] for s in steps] != [20000, 20001]:
         raise AssertionError(f"resumed steps {[s['step'] for s in steps]}, expected 20000-20001")
+    STEP_SECONDS["train_resume"] = [s["rollout_s"] + s["learner_s"] for s in steps]
     if not torch.equal(steps[0]["first"], carried):
         raise AssertionError("the first chunk did not start from the 512 carried boards")
     if "Resumed packed env carry" not in printed:
@@ -910,6 +953,198 @@ def train_resume_phase(by_phase: dict, device="cuda") -> None:
               f"{s['learner_s']:.3f} s, sched_mult {s['scalars']['sched_mult']:.3g}"
               for s in steps)
           + f"; {summary['elapsed']:.3f} s in all; merge launches {by_phase['train_resume']}")
+
+
+_DP_RECORDS = ("points", "mono_before", "mono_after", "empt_before", "empt_after",
+               "value_pred", "valid", "done_here", "ep_score")
+
+
+def dp_steps(recipe: list, group, device, keep_params=False, keep_records=False) -> tuple:
+    """The DP_STEPS of the sharded step of ``recipe`` from RESUME_SOURCE on
+    ``device`` as a rank of ``group`` (None: the step without a group): a
+    record of each step (scalars, moments in and out, the parameters' hash,
+    host seconds, merge launches, the group's collectives), and whether the
+    lanes started fresh."""
+    cfg = cli.train_config(recipe + ["--steps", str(RESUME_STEPS), "--device", str(device)])
+    _, model, labels = loop.build_model(cfg)
+    model.to(device).eval()
+    opt_state, moments, key, manifest = loop.load_train_state(RESUME_SOURCE, model, device)
+    carry, _ = loop.load_env_carry(RESUME_SOURCE, cfg.packed_lanes, cfg.scan_cap, device,
+                                   loop.QuietLogger(), group)
+    fresh = carry is None
+    if fresh:
+        carry = loop.init_sharded_env_carry(group, key, cfg.packed_lanes, device)
+    step = loop.make_sharded_train_step(group, cfg, model, labels, opt.OptimizerConfig(
+        learning_rate=cfg.learning_rate, critic_lr=cfg.critic_lr, beta1=cfg.beta1,
+        beta2=cfg.beta2, weight_decay=cfg.weight_decay))
+    stats = (group or pmesh.DataGroup()).stats
+    records = []
+    for ts in DP_STEPS:
+        sync(device)
+        t0, launches, before = time.perf_counter(), merge.launches, dict(stats)
+        res = step(opt_state, moments, key, ts, manifest["current_beta"], carry)
+        sc = dict(zip(loop.SCALAR_KEYS, res.outputs["scalars"].cpu().tolist()))
+        sync(device)
+        params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        rec = dict(step=ts, scalars=sc, seconds=time.perf_counter() - t0,
+                   rollout_s=res.rollout_s, launches=merge.launches - launches,
+                   moments_in=[float(m) for m in moments],
+                   moments=[float(m) for m in res.moments],
+                   sha=hashlib.sha256(b"".join(p.numpy().tobytes() for p in params.values()))
+                   .hexdigest(),
+                   collectives={k: stats[k] - before[k] for k in stats})
+        if keep_params:
+            rec["params"] = params
+        if keep_records:
+            rec["records"] = {k: getattr(res.traj, k).cpu().numpy() for k in _DP_RECORDS}
+            rec["boot_value"] = res.traj.boot_value.cpu().numpy()
+        records.append(rec)
+        moments, carry = res.moments, res.carry
+    return records, fresh
+
+
+def dp_rank(rank: int, url: str, backend: str, size: int, card: str, recipe: list) -> dict:
+    """A spawned rank of train_dp (b)/(c): ``card`` "shared" puts every rank
+    on cuda:0, "own" rank r on cuda:r, "cpu" on the CPU (a rehearsal)."""
+    device = (torch.device("cpu") if card == "cpu"
+              else torch.device("cuda", 0 if card == "shared" else rank))
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False  # full f32, as the JAX reference
+    else:  # a rehearsal: count the plain merge's calls as the kernel's launches
+        torch.set_num_threads(1)
+        plain = merge.merge4_plain
+
+        def counted(*args, **kwargs):
+            merge.launches += 1
+            return plain(*args, **kwargs)
+
+        merge.merge4_plain = counted
+    group = pmesh.init_distributed(url, rank=rank, world_size=size, device=device,
+                                   backend=backend)
+    try:
+        merge.launches = 0
+        records, fresh = dp_steps(recipe, group, device, keep_records=True)
+        return dict(records=records, fresh=fresh, launches=merge.launches)
+    finally:
+        pmesh.shutdown()
+
+
+def dp_single_rank(recipe: list, device) -> str:
+    """(a): the sharded step at world size 1 over NCCL (Gloo on the CPU)
+    against the step without a group, from the same state and generators."""
+    with tempfile.TemporaryDirectory() as tmp:
+        group = pmesh.init_distributed(f"file://{tmp}/rendezvous", rank=0, world_size=1,
+                                       device=device)
+        try:
+            probe = torch.arange(4.0, device=device)
+            torch.distributed.all_reduce(probe, group=group.group)
+            if not torch.equal(probe.cpu(), torch.arange(4.0)):
+                raise AssertionError(f"{group.backend} all_reduce at world size 1: {probe}")
+            ranked, _ = dp_steps(recipe, group, device, keep_params=True)
+        finally:
+            pmesh.shutdown()
+    plain, _ = dp_steps(recipe, None, device, keep_params=True)
+    err = 0.0
+    for r, p in zip(ranked, plain):
+        for k in EXACT_SCALARS:
+            if r["scalars"][k] != p["scalars"][k]:
+                raise AssertionError(f"step {r['step']}: {k} {r['scalars'][k]} vs "
+                                     f"{p['scalars'][k]} without a group")
+        for g, w in zip(r["moments"], p["moments"]):
+            if abs(g - w) > DP_SINGLE_RTOL * abs(w):
+                raise AssertionError(f"step {r['step']}: moments {r['moments']} vs {p['moments']}")
+        for n, w in p["params"].items():
+            err = max(err, float((r["params"][n] - w).abs().max()))
+        if err > DP_SINGLE_ATOL:
+            raise AssertionError(f"step {r['step']}: parameters differ by {err}")
+    resumed = STEP_SECONDS.get("train_resume", [])
+    return (f"(a) {group.backend} at world size 1 (all_reduce probe exact): "
+            f"{len(DP_STEPS)} steps == the step without a group (counts exact, moments "
+            f"rtol {DP_SINGLE_RTOL}, params max |diff| {err:.3g} <= {DP_SINGLE_ATOL}); host s "
+            "a step: " + ", ".join(f"{r['seconds']:.3f}" for r in ranked)
+            + " vs " + ", ".join(f"{p['seconds']:.3f}" for p in plain) + " without a group, "
+            + (", ".join(f"{x:.3f}" for x in resumed) or "not run") + " in train_resume; "
+            + "collectives a step: " + ", ".join(
+                f"{r['collectives']['calls']} ({r['collectives']['bytes']} B)" for r in ranked)
+            + f"; merge launches {sum(r['launches'] for r in ranked + plain)}")
+
+
+def dp_ranks(recipe: list, backend: str, card: str) -> tuple:
+    """(b)/(c): DP_RANKS spawned ranks; (text, their merge launches)."""
+    cfg = cli.train_config(recipe + ["--device", "cpu"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = pmesh.spawn(dp_rank, DP_RANKS, (f"file://{tmp}/rendezvous", backend,
+                                                DP_RANKS, card, recipe),
+                            timeout_s=DP_RANK_TIMEOUT_S)
+    if not all(r["fresh"] for r in ranks):
+        raise AssertionError("the lanes of a sharded_d 1 env_carry were restored at D=2")
+    per_rank = 2 * cfg.horizon * len(DP_STEPS)
+    if [r["launches"] for r in ranks] != [per_rank] * DP_RANKS:
+        raise AssertionError(f"merge launches by rank {[r['launches'] for r in ranks]}, "
+                             f"expected {per_rank} each")
+    done_scores, lines = [], []
+    for i, ts in enumerate(DP_STEPS):
+        recs = [r["records"][i] for r in ranks]
+        if len({r["sha"] for r in recs}) != 1 or any(r["scalars"] != recs[0]["scalars"]
+                                                     for r in recs):
+            raise AssertionError(f"step {ts}: the ranks' parameters or scalars differ")
+        sc = recs[0]["scalars"]
+        if sc["env_steps"] != cfg.packed_lanes * cfg.horizon:
+            raise AssertionError(f"step {ts}: {sc['env_steps']} env steps")
+        check_finite(f"train_dp step {ts}", sc)
+        joined = {k: torch.as_tensor(np.concatenate([r["records"][k] for r in recs], axis=1))
+                  for k in _DP_RECORDS}
+        boot = torch.as_tensor(np.concatenate([r["boot_value"] for r in recs]))
+        host = A.compute_packed(*(joined[k] for k in _DP_RECORDS[:7]), joined["done_here"],
+                                boot, cfg.reward_weights, cfg.gamma,
+                                A.RtgMoments(*map(torch.tensor, recs[0]["moments_in"])),
+                                cfg.rtg_beta, ts + 1)
+        for g, w in zip(recs[0]["moments"], host["new_moments"]):
+            if abs(g - float(w)) > DP_HOST_RTOL * abs(float(w)):
+                raise AssertionError(f"step {ts}: moments {recs[0]['moments']} vs the host's "
+                                     f"{[float(x) for x in host['new_moments']]}")
+        done_scores += joined["ep_score"][joined["done_here"]].tolist()
+        seconds = max(r["seconds"] for r in recs)
+        c = recs[0]["collectives"]
+        lines.append(f"step {ts}: {seconds:.3f} host s ({sc['env_steps'] / seconds:.0f} env "
+                     f"steps/s), {sc['num_batches']:.0f} minibatches, {c['calls']} "
+                     f"collectives ({c['bytes']} B a rank, "
+                     f"{max(r['collectives']['seconds'] for r in recs) * 1e3:.1f} host ms)")
+    avg = sum(done_scores) / max(len(done_scores), 1)
+    if not done_scores or avg <= DP_MIN_EPISODE_AVG:
+        raise AssertionError(f"{len(done_scores)} completed episodes, avg {avg} <= "
+                             f"{DP_MIN_EPISODE_AVG}")
+    launches = sum(r["launches"] for r in ranks)
+    return (f"{DP_RANKS} ranks over {backend}, {card} card(s), {cfg.packed_lanes // DP_RANKS} "
+            f"lanes and a {cfg.batch_size // DP_RANKS} batch each, fresh lanes: parameters "
+            f"bit-identical, {cfg.packed_lanes * cfg.horizon} env steps and moments == the "
+            f"host's over both ranks' records (rtol {DP_HOST_RTOL}) each step; "
+            f"{len(done_scores)} completed episodes, avg {avg:.1f} (floor {DP_MIN_EPISODE_AVG}); "
+            + "; ".join(lines) + f"; merge launches {per_rank} a rank", launches)
+
+
+def train_dp_phase(by_phase: dict, device="cuda", recipe=None) -> None:
+    """The data-parallel step: (a) one NCCL rank against the step without a
+    group, (b) two Gloo ranks sharing the card, (c) two NCCL ranks on two
+    cards when there are two."""
+    t0 = time.perf_counter()
+    recipe = TRAIN_RECIPE if recipe is None else recipe
+    before = merge.launches
+    single = dp_single_rank(recipe, torch.device(device))
+    by_phase["train_dp"] = merge.launches - before
+    card = "shared" if torch.device(device).type == "cuda" else "cpu"
+    shared, launches = dp_ranks(recipe, "gloo", card)
+    texts = [single, "(b) " + shared]
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= DP_RANKS:
+        own, more = dp_ranks(recipe, "nccl", "own")
+        texts.append("(c) " + own)
+        launches += more
+    else:
+        texts.append(f"(c) skipped: {DP_RANKS} NCCL ranks need {DP_RANKS} cards, this machine "
+                     f"has {torch.cuda.device_count()}")
+    REMOTE_LAUNCHES["train_dp"] = launches
+    by_phase["train_dp"] += launches
+    phase("train_dp", t0, "; ".join(texts) + f"; merge launches {by_phase['train_dp']}")
 
 
 def train_urm_phase(by_phase: dict, device="cuda") -> None:
@@ -1657,6 +1892,7 @@ def main() -> None:
     urm_phase(by_phase)
     train_phase(by_phase)
     train_resume_phase(by_phase)
+    train_dp_phase(by_phase)
     train_urm_phase(by_phase)
     train_exact_phase(by_phase)
     train_expert_phase(by_phase)
@@ -1668,7 +1904,7 @@ def main() -> None:
 
     # 19. kernels
     t0 = time.perf_counter()
-    main_launches = merge.launches
+    main_launches = merge.launches + sum(REMOTE_LAUNCHES.values())
     if main_launches != sum(by_phase.values()):
         raise AssertionError(f"{main_launches} launches, phases add up to {by_phase}")
     t = timing[SERVE_BATCH]

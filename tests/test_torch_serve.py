@@ -203,3 +203,30 @@ def test_http_endpoints(services):
         srv.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def _server_flags(path) -> set:
+    """The option strings of the ``ap.add_argument`` calls in a server's
+    ``main``."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    return {a.value for call in ast.walk(main) if isinstance(call, ast.Call)
+            and getattr(call.func, "attr", None) == "add_argument"
+            for a in call.args if isinstance(a, ast.Constant)}
+
+
+def test_platform_raises_naming_device_and_the_flags_are_the_servers(tmp_path):
+    """``--platform`` (the JAX server's device switch) raises before a model
+    loads, naming --device; the port's server takes the JAX server's flags
+    and --device, no other."""
+    from pathlib import Path
+
+    import tpu2048.serve as jserve
+    from tpu2048_torch import serve as tserve
+
+    with pytest.raises(NotImplementedError, match="--device"):
+        tserve.main(["--platform", "cpu", "--checkpoint", str(tmp_path / "none")])
+    ours, theirs = _server_flags(Path(tserve.__file__)), _server_flags(Path(jserve.__file__))
+    assert "--platform" in theirs and ours - theirs == {"--device"} and theirs <= ours

@@ -19,8 +19,9 @@
 * Full width on the CPU: a copy of checkpoints_expG resumes at step 20000
   on its 512 carried boards and writes its step-20000 checkpoint.
 * Unported flags raise NotImplementedError (expert iteration and the
-  anchor are ported: tests/test_torch_expert_train.py); asking for cuda
-  without a card raises."""
+  anchor are ported: tests/test_torch_expert_train.py), data-parallel
+  layouts that cannot run raise (tests/test_torch_parallel.py holds the
+  data-parallel trainer); asking for cuda without a card raises."""
 
 import contextlib
 import io
@@ -337,16 +338,29 @@ def test_resumes_checkpoints_expG_at_full_width(tmp_path, capsys):
     assert (src / "train_state.json").read_text().count('"train_step": 19999') == 1
 
 
-@pytest.mark.parametrize("flags,named", [
-    (["--packed", "--no-packed-capture", "--mesh-data", "2"], "--mesh-data"),
-    (["--packed", "--no-packed-capture", "--wandb"], "--wandb"),
-    (["--packed", "--no-packed-capture", "--num-processes", "2"], "--num-processes"),
-    (["--packed", "--no-packed-capture", "--platform", "cpu"], "--platform"),
+@pytest.mark.parametrize("flags,error,named", [
+    (["--packed", "--no-packed-capture", "--lanes", "6", "--batch-size", "8",
+      "--mesh-data", "4"], ValueError,
+     "lanes=6 and batch_size=8 must be divisible by data axis size 4"),
+    (["--episodes", "8", "--batch-size", "6", "--mesh-data", "4"], ValueError,
+     "num_episodes=8 and batch_size=6 must be divisible by data axis size 4"),
+    (["--packed", "--no-packed-capture", "--wandb"], NotImplementedError, "--wandb"),
+    (["--packed", "--lanes", "6", "--batch-size", "6", "--mesh-data", "3",
+      "--num-processes", "2", "--process-id", "0", "--coordinator-address", "127.0.0.1:9"],
+     ValueError, "--mesh-data 3 is not divisible by --num-processes 2"),
+    (["--packed", "--lanes", "4", "--batch-size", "4", "--mesh-data", "2", "--device", "cuda"],
+     RuntimeError, "cuda"),
+    (["--packed", "--no-packed-capture", "--platform", "cpu"], NotImplementedError,
+     "--platform"),
 ])
-def test_unported_flags_raise(flags, named, tmp_path):
-    with pytest.raises(NotImplementedError, match=named):
-        cli.main(["train", *flags, "--steps", "1", "--checkpoint-dir", str(tmp_path),
-                  "--device", "cpu"])
+def test_unported_flags_raise(flags, error, named, tmp_path):
+    """The refusals: the unported flags, and the data-parallel layouts that
+    cannot run (shards that do not divide, a CUDA run without a card)."""
+    if "cuda" in flags and torch.cuda.is_available():
+        pytest.skip("a card is present: this checks the CPU-only machine")
+    with pytest.raises(error, match=named):
+        cli.main(["train", "--steps", "1", "--checkpoint-dir", str(tmp_path),
+                  "--device", "cpu", *flags])
     assert not any(tmp_path.iterdir())
 
 

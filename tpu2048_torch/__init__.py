@@ -13,7 +13,10 @@ Mirrors the module layout of ``tpu2048`` so each counterpart is easy to find:
             training rollouts), the best-episode recorder, masked policy,
             expectimax search, advantage, augmentation, PPO losses and the
             learner
-  train/    checkpoints (read and write), the single-device PPO trainer,
+  parallel/ data-parallel training over torch.distributed (the process
+            group and its collectives, the sharded train step, the launch
+            of local ranks) and the tensor-parallel GameMLP
+  train/    checkpoints (read and write), the PPO and expert trainer,
             ``evaluate`` (greedy, sampled, search; best-of play for the
             demo), the demo export, the terminal clients, the warm start
             and the CLI

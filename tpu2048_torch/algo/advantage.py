@@ -16,6 +16,10 @@ multiply-add per step (the JAX package's parallel suffix scan is an
 optimisation for XLA; the two agree to float32 rounding). Scalars that depend
 only on the step (the bias correction) are computed on the host in float32,
 so nothing here waits for the device.
+
+Data-parallel ranks pass their ``group`` (``parallel/mesh.py``; the JAX
+package's ``axis_name``): the batch moments are then global, each rank's
+sums added over the ranks, the mean before the second-pass variance.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import DataGroup, all_sum
 
 EPS = 1e-8
 
@@ -111,14 +117,16 @@ def corrected_mu_std(moments: RtgMoments, rtg_beta: float, rtg_step: int) -> tup
 
 
 def normalize_rtg(G: torch.Tensor, valid: torch.Tensor, moments: RtgMoments,
-                  rtg_beta: float, rtg_step: int) -> tuple:
+                  rtg_beta: float, rtg_step: int, group: DataGroup | None = None) -> tuple:
     """Normalise with the bias-corrected OLD moments, then fold the batch's
-    statistics into them. Returns (G_norm, new_moments, batch_mean,
-    batch_var)."""
+    statistics (over every rank of ``group``) into them. Returns (G_norm,
+    new_moments, batch_mean, batch_var)."""
     w = valid.to(torch.float32)
-    n = w.sum().clamp(min=1.0)
-    batch_mean = (G * w).sum() / n
-    batch_var = ((G - batch_mean).square() * w).sum() / n
+    w_sum, gw_sum = all_sum(group, w.sum(), (G * w).sum())
+    n = w_sum.clamp(min=1.0)
+    batch_mean = gw_sum / n
+    (sq_sum,) = all_sum(group, ((G - batch_mean).square() * w).sum())
+    batch_var = sq_sum / n
 
     mu_c, std = corrected_mu_std(moments, rtg_beta, rtg_step)
     G_norm = (G - mu_c) / (std + EPS)
@@ -128,9 +136,9 @@ def normalize_rtg(G: torch.Tensor, valid: torch.Tensor, moments: RtgMoments,
     return G_norm, RtgMoments(new_mu, new_m2, new_mu), batch_mean, batch_var
 
 
-def _finish(reward, G_raw, valid, value_pred, moments, rtg_beta, rtg_step) -> dict:
+def _finish(reward, G_raw, valid, value_pred, moments, rtg_beta, rtg_step, group) -> dict:
     G_norm, new_moments, batch_mean, batch_var = normalize_rtg(
-        G_raw, valid, moments, rtg_beta, rtg_step)
+        G_raw, valid, moments, rtg_beta, rtg_step, group)
     return dict(reward=reward, G_raw=G_raw, G_norm=G_norm,
                 advantage=G_norm - value_pred, new_moments=new_moments,
                 batch_mean=batch_mean, batch_var=batch_var)
@@ -138,20 +146,20 @@ def _finish(reward, G_raw, valid, value_pred, moments, rtg_beta, rtg_step) -> di
 
 def compute(traj_points, mono_b, mono_a, empt_b, empt_a, value_pred, valid,
             weights: RewardWeights, gamma: float, moments: RtgMoments,
-            rtg_beta: float, rtg_step: int) -> dict:
+            rtg_beta: float, rtg_step: int, group: DataGroup | None = None) -> dict:
     """The advantage pipeline over (T, N) episodes: a dict of reward,
     G_raw, G_norm, advantage (each (T, N)), new_moments, batch_mean and
-    batch_var."""
+    batch_var; the moments global over ``group``'s ranks."""
     reward = step_rewards(traj_points, mono_b, mono_a, empt_b, empt_a, weights, gamma)
     reward = torch.where(valid, reward, 0.0)
     G_raw = returns_to_go(reward, valid, gamma)
-    return _finish(reward, G_raw, valid, value_pred, moments, rtg_beta, rtg_step)
+    return _finish(reward, G_raw, valid, value_pred, moments, rtg_beta, rtg_step, group)
 
 
 def compute_packed(traj_points, mono_b, mono_a, empt_b, empt_a, value_pred,
                    valid, done_here, boot_value, weights: RewardWeights,
                    gamma: float, moments: RtgMoments, rtg_beta: float,
-                   rtg_step: int) -> dict:
+                   rtg_step: int, group: DataGroup | None = None) -> dict:
     """The pipeline for packed (auto-reset) chunks: the backward pass resets
     at episode ends, and the episode cut at the chunk's end is bootstrapped
     with the critic's value, taken to raw-return units with the same OLD
@@ -161,4 +169,4 @@ def compute_packed(traj_points, mono_b, mono_a, empt_b, empt_a, value_pred,
     mu_c, std = corrected_mu_std(moments, rtg_beta, rtg_step)
     boot_raw = mu_c + (std + EPS) * boot_value
     G_raw = returns_to_go_packed(reward, done_here, gamma, boot_raw)
-    return _finish(reward, G_raw, valid, value_pred, moments, rtg_beta, rtg_step)
+    return _finish(reward, G_raw, valid, value_pred, moments, rtg_beta, rtg_step, group)

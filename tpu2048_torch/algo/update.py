@@ -23,6 +23,16 @@ The minibatch count is read on the host once per call (one sync); the
 minibatches are then a Python loop. A dataset smaller than one minibatch,
 which the JAX package's fixed-size window cannot slice, trains as one
 shorter minibatch.
+
+Data-parallel ranks pass their ``group`` (the JAX package's ``axis_name``);
+``batch_size`` is then per rank. The ranks' row counts are gathered once
+per call: every rank runs the MAX over ranks of the minibatch counts (a
+rank whose shard is used up trains zero-weight windows), and each
+minibatch's loss is normalised by the global weight sum, which follows on
+the host from those counts. The gradients are summed over the ranks in one
+collective of the flattened gradients per minibatch, so each rank takes the
+same optimizer step; the loss and KL statistics are summed (the KL maximum
+maxed) over the ranks once, at the end.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 from ..env import symmetry
 from ..models.encoding import encode_boards
 from ..ops import optimizer as opt
+from ..parallel.mesh import DataGroup, all_extrema, all_sum
 from . import losses
 
 
@@ -97,9 +108,32 @@ LOSSES = {"ppo": losses.ppo_loss, "imitation": losses.imitation_loss,
           "imitation_sharp": partial(losses.imitation_loss, sharp=True)}
 
 
+def window_weight(s: int, s_cap: int, batch_size: int, mb: int) -> int:
+    """The count of weight-1 rows in minibatch ``mb`` of a dataset of
+    ``s`` valid rows (valid first) and ``s_cap`` in all: the window
+    ``[start, start + batch_size)``, its start clamped to ``s_cap -
+    batch_size``, keeps the rows at or past its logical start and before
+    ``s``."""
+    logical_start = mb * batch_size
+    start = min(max(logical_start, 0), max(s_cap - batch_size, 0))
+    end = start + min(batch_size, s_cap - start)
+    return max(0, min(end, s) - max(start, logical_start))
+
+
+def _flat_sum(group: DataGroup, grads: list) -> list:
+    """``grads`` summed over the ranks in one collective."""
+    flat = group.sum(torch.cat([g.reshape(-1) for g in grads]))
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return out
+
+
 def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
                      batch_size: int, epochs: int, kl_diagnostic: bool = True,
-                     objective: str = "ppo", anchor: tuple | None = None):
+                     objective: str = "ppo", anchor: tuple | None = None,
+                     group: DataGroup | None = None):
     """``optimize(opt_state, dataset, beta, critic_strength, schedule_mult, *,
     perm_generator, dropout_generator, perm_draws=None) -> OptimizeStats``,
     training ``model`` (its parameters in place, in train mode) and
@@ -115,10 +149,12 @@ def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
 
     ``perm_draws`` (epochs, S_cap) replaces the epochs' uniform draws, so a
     test can replay another shuffle; ``dropout_generator`` draws the dropout
-    masks (unused at dropout 0)."""
+    masks (unused at dropout 0). ``group``: train data-parallel over its
+    ranks, ``batch_size`` rows a rank (module docstring)."""
     loss_impl = LOSSES[objective]
     params = dict(model.named_parameters())
     names = list(params)
+    parallel = group is not None and group.size > 1
 
     def optimize(opt_state, dataset: Dataset, beta, critic_strength,
                  schedule_mult, *, perm_generator=None, dropout_generator=None,
@@ -127,6 +163,9 @@ def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
         s_cap = dataset.valid.shape[0]
         s = int(dataset.valid.sum())  # the one host sync of the learner
         nb = max(-(-s // batch_size), 0)
+        if parallel:  # every rank's row count, for the minibatch count and denominators
+            counts = [int(c) for c in group.gather(torch.tensor([s])).tolist()]
+            nb = max(max(-(-c // batch_size), 0) for c in counts)
         zero = torch.zeros((), device=device)
         st = dict(loss=zero, policy=zero, ent_loss=zero, value=zero, gnorm=zero,
                   ent=zero, kl_total=zero, kl_avg=zero, kl_max=zero)
@@ -142,33 +181,39 @@ def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
                 batch = _minibatch(dataset, rows)
                 idx = torch.arange(start, start + rows.shape[0], device=device)
                 weights = ((idx >= logical_start) & (idx < s)).to(torch.float32)
+                # The global weight sum, each rank's from its row count.
+                denom = (float(max(sum(window_weight(c, s_cap, batch_size, mb)
+                                       for c in counts), 1)) if parallel else None)
                 inputs = encode_boards(batch["board"].to(torch.int32))
                 logits, values = model(inputs, dropout_generator)
                 loss, lstats = loss_impl(
                     logits, values, batch["action"], batch["mask"],
                     batch["advantage"], batch["rtg"], batch["logprobs"], weights,
-                    kl_strength=beta, critic_strength=critic_strength,
+                    kl_strength=beta, critic_strength=critic_strength, denom=denom,
                     target_probs=batch.get("target_probs"))
                 if anchor is not None:
                     anchor_model, strength = anchor
                     with torch.no_grad():
                         a_logits, _ = anchor_model(inputs)
                     loss = loss + strength * losses.kl_old_new(
-                        a_logits, logits, batch["mask"], weights)[1]
+                        a_logits, logits, batch["mask"], weights, denom)[1]
                 # A parameter the loss does not reach (the URM's init_hidden
                 # under truncated backprop) gets a zero gradient, as jax.grad
                 # gives it.
                 grads = torch.autograd.grad(loss, [params[n] for n in names],
                                             allow_unused=True)
-                grads = {n: torch.zeros_like(params[n]) if g is None else g
-                         for n, g in zip(names, grads)}
+                grads = [torch.zeros_like(params[n]) if g is None else g
+                         for n, g in zip(names, grads)]
+                if parallel:
+                    grads = _flat_sum(group, grads)
+                grads = dict(zip(names, grads))
                 gnorm = opt.update_(params, grads, opt_state, labels, schedule_mult,
                                     opt_config)
                 if kl_diagnostic:
                     with torch.no_grad():
                         new_logits, _ = model(inputs, dropout_generator)
                         kl_sum, kl_mean, kl_max = losses.kl_old_new(
-                            logits.detach(), new_logits, batch["mask"], weights)
+                            logits.detach(), new_logits, batch["mask"], weights, denom)
                     st["kl_total"] = st["kl_total"] + kl_sum
                     st["kl_avg"] = st["kl_avg"] + kl_mean
                     st["kl_max"] = torch.maximum(st["kl_max"], kl_max)
@@ -179,6 +224,9 @@ def make_optimize_fn(model, labels: dict, opt_config: opt.OptimizerConfig,
                 st["gnorm"] = st["gnorm"] + gnorm
                 st["ent"] = st["ent"] + lstats.entropy
         model.eval()
+        keys = ("loss", "policy", "ent_loss", "value", "ent", "kl_total", "kl_avg")
+        st.update(zip(keys, all_sum(group, *(st[k] for k in keys))))
+        (st["kl_max"],), _ = all_extrema(group, (st["kl_max"],))
         total = float(max(nb * epochs, 1))
         return OptimizeStats(
             loss=st["loss"] / total, policy_loss=st["policy"] / total,

@@ -1,0 +1,84 @@
+"""The launch of data-parallel training's ranks over ``torch.distributed``
+(the process side of ``tpu2048/parallel/train_step.py``; the step itself,
+``make_sharded_train_step`` and ``init_sharded_env_carry``, is the
+trainer's own, in ``train/loop.py``, where its semantics are set out).
+
+The JAX package runs one program over a mesh of devices; here each rank is
+a process. :func:`launch` starts them: ``--mesh-data D`` on one host starts
+D local ranks (rank r on ``cuda:r`` over NCCL, or on the CPU over Gloo);
+with ``--num-processes P --process-id i --coordinator-address A`` each
+process starts D/P of them, global rank ``i * (D/P) + local``. Each rank
+joins the process group (``parallel/mesh.py``) and runs ``train`` with it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import tempfile
+
+import torch
+
+from .. import resolve_device
+from ..train import loop as L
+from .mesh import init_distributed, shutdown, spawn
+
+
+def _summary(out: dict) -> dict:
+    """What a rank hands back across processes: numbers and numpy."""
+    keep = {k: v for k, v in out.items()
+            if k not in ("model", "moments", "recorder")}
+    keep["params"] = {n: p.detach().cpu().numpy() for n, p in out["model"].named_parameters()}
+    keep["moments"] = [float(m) for m in out["moments"]]
+    return keep
+
+
+def _rank_main(local_rank: int, cfg, url: str, procs: int, process_id: int,
+               local: int) -> dict:
+    ranks = procs * local
+    device = (torch.device("cuda", local_rank) if resolve_device(cfg.device).type == "cuda"
+              else torch.device("cpu"))
+    if device.type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    group = init_distributed(url, procs, process_id, rank=process_id * local + local_rank,
+                             world_size=ranks, device=device)
+    try:
+        return _summary(L.train(cfg, group=group))
+    finally:
+        shutdown()
+
+
+def launch(cfg, coordinator_address: str | None = None, num_processes: int | None = None,
+           process_id: int | None = None, timeout_s: float | None = None) -> dict:
+    """Train ``cfg`` data-parallel over D ranks (``--mesh-data``, or the
+    process count when that is left at 1): this process's D/P local ranks,
+    each running ``train`` with its group (spawned when there is more than
+    one). Returns the summary of this process's first rank (rank 0's on
+    process 0): ``train``'s, the model as ``params`` (numpy) and the moments
+    as floats. Local ranks that are still running after ``timeout_s``
+    (None: no limit; the collectives' own timeout still ends a hung rank)
+    are killed and the call raises ``TimeoutError``.
+
+    Raises before anything starts: ``ValueError`` unless D divides by the
+    process count and the lanes (or games) and the batch by D;
+    ``RuntimeError`` for a CUDA run without a card for each local rank."""
+    procs = max(num_processes or 1, 1)
+    if cfg.mesh_data == 1:
+        cfg = dataclasses.replace(cfg, mesh_data=procs)
+    ranks = cfg.mesh_data
+    if ranks % procs:
+        raise ValueError(f"--mesh-data {ranks} is not divisible by --num-processes {procs}")
+    L.shard_sizes(cfg, ranks)
+    L.check_ported(cfg)
+    local = ranks // procs
+    if resolve_device(cfg.device).type == "cuda" and local > torch.cuda.device_count():
+        raise RuntimeError(
+            f"--mesh-data {ranks} over {procs} process(es) puts {local} ranks on this "
+            f"host, which has {torch.cuda.device_count()} CUDA device(s): one rank a card")
+    if procs > 1 and not coordinator_address:
+        raise ValueError("--num-processes > 1 needs --coordinator-address host:port")
+    with tempfile.TemporaryDirectory() as tmp:
+        url = coordinator_address or f"file://{tmp}/rendezvous"
+        args = (cfg, url, procs, process_id or 0, local)
+        if local == 1:
+            return _rank_main(0, *args)
+        return spawn(_rank_main, local, args, timeout_s=timeout_s)[0]

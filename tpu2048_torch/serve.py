@@ -22,7 +22,10 @@ model forward on the service's device: on CUDA, the merge is the
 hand-written kernel. MLP and URM checkpoints alike.
 
 Usage: python -m tpu2048_torch.serve --checkpoint checkpoints_expG
-           [--port 8787] [--device cuda]
+           [--port 8787] [--host 127.0.0.1] [--device cuda]
+
+The JAX server's flags, plus ``--device``; its ``--platform`` raises
+``NotImplementedError`` naming ``--device``, as the CLI's subcommands do.
 """
 
 from __future__ import annotations
@@ -172,16 +175,21 @@ def make_handler(service: PolicyService):
     return Handler
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    from .train.cli import check_platform
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", "-c", default="checkpoints")
     ap.add_argument("--port", type=int, default=8787)
     ap.add_argument("--host", default="127.0.0.1",
                     help="Bind address (default loopback; pass 0.0.0.0 to "
                          "expose on all interfaces — there is no auth)")
+    ap.add_argument("--platform", default=None,
+                    help="The JAX package's platform switch; the port's is --device")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    check_platform(args)
     service = PolicyService(args.checkpoint, args.device)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
     print(f"Serving {service.info()} on http://{args.host}:{args.port}")

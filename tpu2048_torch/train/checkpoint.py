@@ -10,6 +10,9 @@ in the JAX tree's flatten order; they are read, never written.
 Writes are crash-atomic: the ``.npz`` goes to a temporary file that
 ``os.replace`` commits, and the manifest rides inside it, so an interrupted
 save leaves the old checkpoint or the new one, never a truncated file.
+Reads check every member's CRC-32 and also its local header against the
+central directory: ``zipfile`` reads only the central copy of a member's
+CRC, sizes and time, so bytes flipped in the local copy would load unseen.
 
 The port's parameter names are those key paths joined with dots
 (``blocks.0.lin.w``), so carrying weights across is a renaming:
@@ -21,6 +24,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import struct
 import zipfile
 import zlib
 from pathlib import Path
@@ -32,6 +36,8 @@ FORMAT_VERSION = 2
 _MANIFEST_KEY = "__manifest__"
 _CORRUPTION_ERRORS = (zipfile.BadZipFile, zlib.error, EOFError, OSError)
 _KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
+_LOCAL_HEADER = struct.Struct("<4s5H3I2H")
+_ZIP64_PLACEHOLDER = 0xFFFFFFFF
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -108,11 +114,51 @@ def jax_flatten_order(names) -> list:
     return sorted(names, key=key)
 
 
+def _zip64_sizes(extra: bytes, csize: int, usize: int) -> tuple:
+    """(compressed, uncompressed) sizes of a local header whose 32-bit
+    fields hold the zip64 placeholder: from its zip64 extra record."""
+    pos = 0
+    while pos + 4 <= len(extra):
+        tag, size = struct.unpack_from("<2H", extra, pos)
+        if tag == 1:
+            values = list(struct.unpack_from(f"<{size // 8}Q", extra, pos + 4))
+            if usize == _ZIP64_PLACEHOLDER and values:
+                usize = values.pop(0)
+            if csize == _ZIP64_PLACEHOLDER and values:
+                csize = values.pop(0)
+            break
+        pos += 4 + size
+    return csize, usize
+
+
+def check_local_headers(path) -> None:
+    """Raise ``zipfile.BadZipFile`` where a member's local header (version,
+    flags, method, time, date, CRC-32, sizes) differs from its entry in the
+    central directory."""
+    with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+        for info in z.infolist():
+            f.seek(info.header_offset)
+            (sig, version, flags, method, dostime, dosdate, crc, csize, usize, n_name,
+             n_extra) = _LOCAL_HEADER.unpack(f.read(_LOCAL_HEADER.size))
+            f.seek(n_name, os.SEEK_CUR)
+            csize, usize = _zip64_sizes(f.read(n_extra), csize, usize)
+            y, mo, d, h, mi, sec = info.date_time
+            fixed = (sig, version, flags, method, dostime, dosdate)
+            want = (b"PK\x03\x04", info.extract_version, info.flag_bits, info.compress_type,
+                    (h << 11) | (mi << 5) | (sec // 2), ((y - 1980) << 9) | (mo << 5) | d)
+            sized = not flags & 0x08  # else the CRC and sizes follow the data
+            if fixed != want or (sized and (crc, csize, usize) != (
+                    info.CRC, info.compress_size, info.file_size)):
+                raise zipfile.BadZipFile(f"local header of {info.filename!r} differs "
+                                         "from the central directory")
+
+
 def read_npz(path) -> tuple:
     """(arrays keyed as stored, embedded manifest or None). A missing file
     raises FileNotFoundError; unreadable, truncated or bit-rotted files raise
     :class:`CheckpointCorruptError`."""
     try:
+        check_local_headers(path)
         data = np.load(path)
         files = set(data.files)
     except FileNotFoundError:

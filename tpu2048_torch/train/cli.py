@@ -1,7 +1,8 @@
-"""CLI of the port: ``train`` (the single-device trainer, MLP or URM,
-exact-episodes or packed, PPO or expert iteration), ``evaluate``,
-``export-demo`` (the ``web/`` demo's assets), ``human`` and ``play`` (the
-terminal clients). ``bench`` waits for the port's benchmark.
+"""CLI of the port: ``train`` (the trainer, MLP or URM, exact-episodes or
+packed, PPO or expert iteration, on one device or data-parallel),
+``evaluate``, ``export-demo`` (the ``web/`` demo's assets), ``human`` and
+``play`` (the terminal clients). ``bench`` (the JAX package's ``bench.py``)
+is not ported.
 
     python -m tpu2048_torch.train.cli train --packed --lanes 512 \
         --horizon 256 --batch-size 4096 ... [--viz-dir DIR] \
@@ -10,6 +11,9 @@ terminal clients). ``bench`` waits for the port's benchmark.
         --batch-size 4096 -H 196 ... [--resume] [--device cuda|cpu]
     python -m tpu2048_torch.train.cli train --episodes 32 ... --expert-iter \
         --expert-depth 2 [--expert-src DIR] [--expert-bf16] [--anchor-kl S]
+    python -m tpu2048_torch.train.cli train ... --mesh-data D [--device cpu]
+    python -m tpu2048_torch.train.cli train ... --coordinator-address A \
+        --num-processes P --process-id i [--mesh-data D]   (on every host)
     python -m tpu2048_torch.train.cli evaluate <checkpoint dir> --games N \
         [--greedy] [--seed S] [--env-seed S] [--device cuda|cpu] \
         [--search [--search-depth 1|2|3] [--search-prune K] [--search-bf16]]
@@ -21,9 +25,8 @@ terminal clients). ``bench`` waits for the port's benchmark.
     python -m tpu2048_torch.train.cli human [--seed S] [--device cuda|cpu]
 
 Flags as in ``tpu2048/train/cli.py`` (same names and defaults), plus
-``--device``. A flag whose feature is not ported yet raises
-``NotImplementedError`` naming it; so does ``--platform``, the JAX
-package's device switch.
+``--device``. ``--wandb`` raises ``NotImplementedError``; so does
+``--platform``, the JAX package's device switch.
 """
 
 from __future__ import annotations
@@ -113,7 +116,8 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
              "scan-cap x 41 B of device memory")
     add("--checkpoint-freq", dest="checkpoint_freq", type=int, default=None)
     add("--mesh-data", dest="mesh_data", type=int, default=1,
-        help="Data-parallel mesh size (> 1 is not yet ported)")
+        help="Data-parallel ranks (> 1: one process a rank, NCCL between "
+             "cards, Gloo on the CPU; lanes/episodes and batch are global)")
     add("--dropout", type=float, default=0.1)
     add("--eval-env-seed", dest="eval_env_seed", type=int, default=12345,
         help="Base seed of the spawn stream of eval-in-train")
@@ -138,10 +142,12 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
         help="KL trust region: strength of KL(run-start policy || policy) "
              "added to the loss")
     add("--coordinator-address", dest="coordinator_address", default=None,
-        help="Multi-host training (not yet ported)")
+        help="host:port of process 0 (multi-host training)")
     add("--num-processes", dest="num_processes", type=int, default=None,
-        help="Multi-host training (> 1 is not yet ported)")
-    add("--process-id", dest="process_id", type=int, default=None)
+        help="Total number of hosts/processes in the job; each starts "
+             "--mesh-data / --num-processes ranks (--mesh-data defaults to it)")
+    add("--process-id", dest="process_id", type=int, default=None,
+        help="This host's index in [0, num_processes)")
     _add_device_flags(p)
 
 
@@ -153,7 +159,8 @@ def _add_device_flags(p: argparse.ArgumentParser) -> None:
                         "instead of the CUDA kernel)")
 
 
-def _check_platform(args) -> None:
+def check_platform(args) -> None:
+    """Refuse the JAX package's ``--platform``: the port's switch is ``--device``."""
     if args.platform:
         raise NotImplementedError(f"--platform {args.platform}: not ported; the "
                                   "port picks its device with --device")
@@ -161,12 +168,9 @@ def _check_platform(args) -> None:
 
 def config_from_args(args):
     """The ``TrainConfig`` of parsed ``train`` arguments; raises
-    ``NotImplementedError`` for the CLI's own unported flags (the config's
-    are checked by ``train``)."""
-    if args.num_processes and args.num_processes > 1:
-        raise NotImplementedError("--num-processes > 1 (multi-host training): "
-                                  "not yet ported (ROADMAP.md)")
-    _check_platform(args)
+    ``NotImplementedError`` for ``--platform`` (the config's own flags are
+    checked by ``train``)."""
+    check_platform(args)
     from .loop import TrainConfig
 
     field_names = set(TrainConfig.__dataclass_fields__)
@@ -183,15 +187,21 @@ def train_config(argv: list):
 
 
 def cmd_train(args) -> None:
+    cfg = config_from_args(args)
+    if cfg.mesh_data > 1 or (args.num_processes or 1) > 1:
+        from ..parallel.train_step import launch
+
+        launch(cfg, args.coordinator_address, args.num_processes, args.process_id)
+        return
     from .loop import train
 
-    train(config_from_args(args))
+    train(cfg)
 
 
 def cmd_evaluate(args) -> None:
     from .evaluate import evaluate_checkpoint
 
-    _check_platform(args)
+    check_platform(args)
     if args.search and args.search_depth >= 3 and args.search_prune == 0:
         # The exact depth-3 tree is (4*32)^2 subproblems per move per board:
         # force the tractable default instead of silently wedging.
@@ -215,7 +225,7 @@ def cmd_export_demo(args) -> None:
                            search_play_best)
     from .export import export_demo_assets
 
-    _check_platform(args)
+    check_platform(args)
     model, model_cfg, model_type = load_model_checkpoint(args.model_path, args.device)
     print(f"Model loaded (hidden_dim={model_cfg.hidden_dim}, "
           f"num_layers={model_cfg.num_layers})")
@@ -259,21 +269,21 @@ def cmd_export_demo(args) -> None:
 def cmd_human(args) -> None:
     from .play_cli import human_play
 
-    _check_platform(args)
+    check_platform(args)
     human_play(device=args.device, seed=args.seed)
 
 
 def cmd_play(args) -> None:
     from .play_cli import watch_agent
 
-    _check_platform(args)
+    check_platform(args)
     watch_agent(model_path=args.model_path, delay=args.delay, seed=args.seed,
                 search=args.search, device=args.device)
 
 
 def cmd_bench(args) -> None:
-    raise NotImplementedError("bench: not yet ported; it waits for the port's "
-                              "benchmark (ROADMAP.md, Queue 1 item 2)")
+    raise NotImplementedError("bench: the JAX package's bench.py is not ported; the "
+                              "port's benchmark is a BENCHMARK.json of its own (ROADMAP.md)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -358,8 +368,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_flags(p_play)
     p_play.set_defaults(fn=cmd_play)
 
-    p_bench = sub.add_parser("bench", help="Run the throughput benchmark "
-                             "(not yet ported)")
+    p_bench = sub.add_parser("bench", help="The JAX package's throughput benchmark "
+                             "(not ported)")
     p_bench.set_defaults(fn=cmd_bench)
     return parser
 

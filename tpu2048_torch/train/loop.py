@@ -1,6 +1,6 @@
-"""The single-device trainer (counterpart of the single-device path of
-``tpu2048/train/loop.py``), for the MLP and the URM: PPO, or expert
-iteration (``--expert-iter``).
+"""The trainer (counterpart of ``tpu2048/train/loop.py``), for the MLP and
+the URM: PPO, or expert iteration (``--expert-iter``), on one device or
+data-parallel over several (``--mesh-data``).
 
 One train step:
 
@@ -38,10 +38,43 @@ constant through a run, so a run interrupted and resumed is bit-identical
 on the CPU to one that was not, and a train state the JAX package wrote
 resumes here. The streams themselves differ from the JAX package's.
 
+Data parallelism (``--mesh-data D``; counterpart of
+``tpu2048/parallel/train_step.py``). The step is
+:func:`make_sharded_train_step`, given the rank's
+:class:`~tpu2048_torch.parallel.mesh.DataGroup` (``None`` on one device,
+where every collective is the identity). Its semantics are those of the JAX
+package's ``shard_map`` step:
+
+ * Each rank plays ``lanes / D`` (packed) or ``episodes / D`` (exact) games
+   from its own streams, with no collective in the rollout.
+ * The RTG batch moments are global, every minibatch's loss is normalised
+   by the global sample count, and the gradients are summed over the ranks
+   once per minibatch. Every rank runs the MAX over ranks of the minibatch
+   counts; a rank whose shard is used up adds zero-weight batches.
+ * Every logged statistic is global; exact mode's ``best_idx`` indexes the
+   games of all ranks in rank order, and its ``steps_executed`` is the MAX
+   over ranks. The parameters stay bit-identical on every rank.
+
+Streams. The JAX package folds the device index into the step's key
+(``fold_in(key, axis_index)``). Here rank r's generators take the words
+above with r appended as one more word when r > 0. So rank 0's streams are
+exactly the single-device trainer's, and D = 1 is that trainer bit for bit.
+
+The packed lanes. Rank r's ``env_key`` row is ``SeedSequence((*key,
+ENV_KEY, r))`` (rank 0: the single-device key); its lanes' spawns come from
+that row and the step. A D-rank run saves the lanes in the JAX package's
+mesh layout: ``boards``, ``ep_points`` and ``ep_moves`` of every rank in
+rank order, and ``env_key_data`` of shape (D, 2), row r rank r's, under
+``sharded_d = D``; a file of another ``sharded_d`` gives fresh boards.
+
+The ranks are processes: ``parallel/train_step.py::launch`` starts them
+(the CLI's ``--mesh-data``/``--num-processes``) and each runs :func:`train`
+with its group.
+
 At the end of a run, ``--export-demo`` writes the demo's assets to
-``web/data`` (``train/export.py``) with the run's best episode. The mesh
-and wandb are not ported; a configuration that asks for one raises
-``NotImplementedError`` (:func:`check_ported`).
+``web/data`` (``train/export.py``) with the run's best episode. wandb is
+not ported; ``--wandb`` raises ``NotImplementedError``
+(:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -49,7 +82,7 @@ from __future__ import annotations
 import copy
 import time
 from dataclasses import asdict, dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,6 +99,7 @@ from ..models import mlp, urm
 from ..models.encoding import encode_boards
 from ..ops import optimizer as opt
 from ..ops import schedules
+from ..parallel.mesh import DataGroup, all_extrema, all_sum
 from ..utils import printing, viz_export
 from ..utils import stats as S
 from ..utils.logger import MetricLogger
@@ -172,21 +206,17 @@ class TrainConfig:
 
 
 def check_ported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` naming every flag of ``cfg`` whose
-    feature the port does not have yet; nothing is silently ignored. A
+    """Raise ``NotImplementedError`` for ``--wandb``, the one flag whose
+    feature the port does not have; nothing is silently ignored. A
     configuration the reference refuses raises ``ValueError``."""
     if cfg.model_type.lower() not in ("mlp", "urm"):
         raise ValueError(f"Unknown model type: {cfg.model_type}. Use 'mlp' or 'urm'.")
     if cfg.packed and cfg.expert_iter:
         raise ValueError("--packed does not support --expert-iter (the expert "
                          "searcher needs exact-episode rollouts)")
-    unported = [flag for flag, on in (
-        ("--mesh-data > 1", cfg.mesh_data > 1),
-        ("--wandb", cfg.use_wandb),
-    ) if on]
-    if unported:
-        raise NotImplementedError(
-            "; ".join(unported) + ": not yet ported (ROADMAP.md)")
+    if cfg.use_wandb:
+        raise NotImplementedError("--wandb: not ported (it needs the wandb package and "
+                                  "the network; the JSONL metric log has the same metrics)")
 
 
 # Streams of a train step's generators: SeedSequence((*key, step, stream)).
@@ -265,7 +295,8 @@ SCALAR_KEYS = tuple(sorted(
     list(S.DSTAT_KEYS) + list(U.OptimizeStats._fields) + list(_EXTRA_SCALARS)))
 
 
-def make_process_fn(cfg: TrainConfig, optimize_fn):
+def make_process_fn(cfg: TrainConfig, optimize_fn, group: DataGroup | None = None,
+                    num_envs_local: int | None = None):
     """``process(opt_state, traj, moments, train_step, beta, *, generators=,
     aug_plan=None, perm_draws=None) -> (new_moments, outputs)``: advantage,
     augmentation plan, the learner's epochs and the statistics of one
@@ -274,10 +305,18 @@ def make_process_fn(cfg: TrainConfig, optimize_fn):
     ``outputs['scalars']`` stacks every scalar in ``SCALAR_KEYS`` order (one
     host transfer). ``generators`` maps AUGMENT/PERMUTE/DROPOUT to the
     step's generators; ``aug_plan`` and ``perm_draws`` replace their draws (a
-    test replays the JAX package's)."""
+    test replays the JAX package's).
+
+    ``group``/``num_envs_local``: one rank's share of a data-parallel step
+    (:func:`make_sharded_train_step`), its rollout of ``num_envs_local`` lanes or
+    games; ``optimize_fn`` must be built with the same group. The moments
+    and every statistic are then global; ``best_idx`` indexes the games of
+    all ranks in rank order."""
     packed = cfg.packed
     T, N = (cfg.horizon, cfg.packed_lanes) if packed else (cfg.rollout_cap,
                                                            cfg.num_episodes)
+    N = num_envs_local or N
+    ranks = 1 if group is None else group.size
     num_slots = int(np.ceil(T * N * cfg.upsample_ratio)) if cfg.upsample_ratio > 0 else 0
     weights = cfg.reward_weights
 
@@ -292,10 +331,10 @@ def make_process_fn(cfg: TrainConfig, optimize_fn):
                       traj.empt_after, traj.value_pred, traj.valid)
         if packed:
             adv = A.compute_packed(*potentials, traj.done_here, traj.boot_value, weights,
-                                   cfg.gamma, moments, cfg.rtg_beta, train_step)
+                                   cfg.gamma, moments, cfg.rtg_beta, train_step, group)
         else:
             adv = A.compute(*potentials, weights, cfg.gamma, moments, cfg.rtg_beta,
-                            train_step)
+                            train_step, group)
         s_real = T * N
         flat_valid = traj.valid.reshape(s_real)
 
@@ -334,35 +373,138 @@ def make_process_fn(cfg: TrainConfig, optimize_fn):
             flat_done = traj.done_here.reshape(-1)
             scalars = S.device_stats(traj, adv, aug_valid, aug_points,
                                      traj.ep_score.reshape(-1), flat_done,
-                                     traj.ep_start.reshape(-1))
-            n_ep = flat_done.to(torch.float32).sum().clamp(min=1.0)
-            tiles, score_sum = traj.ep_tile, traj.ep_score.to(torch.float32).sum()
-            max_score = traj.ep_score.max()
+                                     traj.ep_start.reshape(-1), group=group)
+            tiles = traj.ep_tile
+            n_done, score_sum, *counts, env_steps = all_sum(
+                group, flat_done.to(torch.float32).sum(),
+                traj.ep_score.to(torch.float32).sum(),
+                *((tiles >= tile).sum() for tile in (512, 1024, 2048)), traj.valid.sum())
+            n_ep = n_done.clamp(min=1.0)
+            (max_score,), _ = all_extrema(group, (traj.ep_score.max(),))
             # A packed chunk has no per-lane best episode (it lives
             # mid-buffer): the recorder keeps it.
             best_idx = torch.zeros((), device=device)
         else:
-            scalars = S.device_stats(traj, adv, aug_valid, aug_points)
-            n_ep = torch.full((), float(N), device=device)
+            scalars = S.device_stats(traj, adv, aug_valid, aug_points, group=group)
+            n_ep = torch.full((), float(N * ranks), device=device)
             tiles = engine.max_tile_value(traj.final_board.to(torch.int32))
-            score_sum = traj.total_points.sum().to(torch.float32)
-            max_score = traj.total_points.max()
-            best_idx = heuristics.first_max_index(traj.total_points)
+            total_points = (traj.total_points if group is None
+                            else group.gather(traj.total_points))
+            points_sum, *counts, env_steps = all_sum(
+                group, traj.total_points.sum(),
+                *((tiles >= tile).sum() for tile in (512, 1024, 2048)),
+                traj.num_moves.sum())
+            score_sum = points_sum.to(torch.float32)
+            max_score = total_points.max()
+            best_idx = heuristics.first_max_index(total_points)
         scalars.update(ostats._asdict())
-
-        def pct(tile):
-            return (tiles >= tile).sum() / n_ep * 100.0
-
+        pct_512, pct_1024, pct_2048 = (c / n_ep * 100.0 for c in counts)
         scalars.update(
             sched_mult=torch.full((), float(sched_mult), device=device),
             batch_max_score=max_score, batch_avg_score=score_sum / n_ep,
-            pct_512=pct(512), pct_1024=pct(1024), pct_2048=pct(2048),
-            best_idx=best_idx,
-            env_steps=traj.valid.sum() if packed else traj.num_moves.sum())
+            pct_512=pct_512, pct_1024=pct_1024, pct_2048=pct_2048,
+            best_idx=best_idx, env_steps=env_steps)
         stacked = torch.stack([scalars[k].to(torch.float32) for k in SCALAR_KEYS])
         return adv["new_moments"], dict(scalars=stacked, advantage=adv["advantage"])
 
     return process
+
+
+def shard_sizes(cfg: TrainConfig, ranks: int) -> tuple:
+    """(games or lanes a rank plays, its minibatch size); raises
+    ``ValueError`` (the JAX package's message) unless both divide."""
+    global_envs = cfg.packed_lanes if cfg.packed else cfg.num_episodes
+    if global_envs % ranks or cfg.batch_size % ranks:
+        raise ValueError(
+            f"{'lanes' if cfg.packed else 'num_episodes'}={global_envs} and "
+            f"batch_size={cfg.batch_size} must be divisible by data axis size {ranks}")
+    return global_envs // ranks, cfg.batch_size // ranks
+
+
+def rank_words(group: DataGroup | None) -> tuple:
+    """The words a rank appends to the single-device seeds: none on rank 0."""
+    return () if group is None or group.rank == 0 else (group.rank,)
+
+
+def init_sharded_env_carry(group: DataGroup | None, key, num_lanes: int, device) -> R.EnvCarry:
+    """This rank's ``num_lanes / D`` fresh lanes, spawned from its key
+    (module docstring)."""
+    local = num_lanes // (1 if group is None else group.size)
+    env_key = np.random.SeedSequence(
+        (*map(int, key), ENV_KEY, *rank_words(group))).generate_state(2, np.uint32)
+    return R.init_env_carry(env_key, local, device, make_generator(device, *env_key))
+
+
+class StepOut(NamedTuple):
+    moments: object  # A.RtgMoments after the step
+    outputs: dict  # scalars (SCALAR_KEYS order) and the rank's (T, N/D) advantage
+    traj: object  # the rank's Trajectory or PackedTrajectory
+    carry: object  # the rank's EnvCarry after the chunk (packed), else None
+    recorder: object  # the updated recorder, when one was given
+    rollout_s: float  # host seconds of the rollout
+
+
+def make_sharded_train_step(group: DataGroup | None, cfg: TrainConfig, model, labels: dict,
+                            opt_config, anchor: tuple | None = None,
+                            teacher: tuple | None = None):
+    """``step(opt_state, moments, key, train_step, beta, carry=None,
+    recorder=None, *, rollout_draws=None, aug_plan=None, perm_draws=None)
+    -> StepOut``: this rank's share of one train step (module docstring),
+    training ``model`` (in place, as every rank does) and ``opt_state``;
+    ``group`` None is the single-device step.
+
+    ``cfg`` is the full TrainConfig: ``lanes``/``num_episodes`` and
+    ``batch_size`` are global and must divide by the group's size.
+    ``train_step`` is the 0-indexed step of the run (the stream word; the
+    schedule and the moments take ``train_step + 1``), ``key`` the run's
+    (2,) key. ``carry`` is the rank's EnvCarry in packed mode. ``anchor`` is
+    ``(anchor_model, strength)``. ``teacher`` is ``(model, SearchCoefs)``
+    of ``--expert-src``; without it the teacher is loaded here, once, so the
+    frozen teacher is never replaced by the live one. ``rollout_draws``
+    (the rollout's injected ``boards``/``actions``/``spawns``/``resets``),
+    ``aug_plan`` and ``perm_draws`` replay another engine's draws."""
+    local_envs, local_bs = shard_sizes(cfg, 1 if group is None else group.size)
+    device = next(model.parameters()).device
+    optimize_fn = U.make_optimize_fn(model, labels, opt_config, local_bs, cfg.ppo_epochs,
+                                     kl_diagnostic=cfg.kl_diagnostic,
+                                     objective=objective(cfg), anchor=anchor, group=group)
+    process = make_process_fn(cfg, optimize_fn, group=group, num_envs_local=local_envs)
+    if teacher is None and cfg.expert_iter and cfg.expert_src:
+        teacher = load_teacher(cfg, device)
+    e_model, e_coefs = teacher or (None, None)
+    words = rank_words(group)
+
+    def gen(key, train_step, stream):
+        return make_generator(device, *key, train_step, stream, *words)
+
+    def step(opt_state, moments, key, train_step: int, beta: float, carry=None,
+             recorder=None, *, rollout_draws: dict | None = None, aug_plan=None,
+             perm_draws=None) -> StepOut:
+        t0 = time.perf_counter()
+        draws = rollout_draws or {}
+        if cfg.packed:
+            out = R.rollout_packed(
+                model, carry, cfg.horizon, action_generator=gen(key, train_step, ACTION),
+                env_generator=make_generator(device, *carry.env_key, train_step),
+                recorder=recorder, **draws)
+            traj, carry = out[:2]
+            recorder = out[2] if recorder is not None else None
+        else:
+            traj = R.rollout(
+                model, local_envs, cfg.rollout_cap,
+                action_generator=gen(key, train_step, ACTION),
+                env_generator=gen(key, train_step, EXACT_ENV),
+                **expert_args(cfg, e_model, e_coefs, moments, train_step + 1), **draws)
+            if group is not None and group.size > 1:
+                trips = group.max(torch.tensor(traj.steps_executed))
+                traj = traj._replace(steps_executed=int(trips))
+        t1 = time.perf_counter()
+        gens = {s: gen(key, train_step, s) for s in (AUGMENT, PERMUTE, DROPOUT)}
+        moments, outputs = process(opt_state, traj, moments, train_step + 1, beta,
+                                   generators=gens, aug_plan=aug_plan, perm_draws=perm_draws)
+        return StepOut(moments, outputs, traj, carry, recorder, t1 - t0)
+
+    return step
 
 
 _DELTA_OF = ("smoothness", "corner", "adjacency", "chain", "topological")
@@ -580,28 +722,43 @@ _BEST_DTYPES = dict(best_before=torch.int8, best_after=torch.int8,
 
 
 def save_env_carry(ckpt_dir, carry: R.EnvCarry, recorder: CAPT.EpisodeRecorder | None,
-                   step: int, lanes: int) -> None:
+                   step: int, lanes: int, group: DataGroup | None = None) -> None:
     """The lanes' state as ``env_carry.npz``, beside ``train_state.npz``, so a
     resumed run goes on from the same boards, with the recorder's committed
     episode (its ``best_*`` fields; the lane buffers are not kept, and
-    :func:`CAPT.mark_resumed` covers them on restore)."""
-    leaves = {"['boards']": _host(carry.boards),
-              "['env_key_data']": np.asarray(carry.env_key, np.uint32),
-              "['ep_points']": _host(carry.ep_points),
-              "['ep_moves']": _host(carry.ep_moves)}
+    :func:`CAPT.mark_resumed` covers them on restore).
+
+    Data-parallel ranks all call it with their ``group``: the lanes of every
+    rank are gathered in rank order, the keys as a (D, 2) ``env_key_data``
+    under ``sharded_d = D`` (the JAX package's mesh layout), and rank 0
+    writes."""
+    ranks = 1 if group is None else group.size
+    env_key = np.asarray(carry.env_key, np.uint32)
+    boards, ep_points, ep_moves = carry.boards, carry.ep_points, carry.ep_moves
+    if ranks > 1:
+        boards, ep_points, ep_moves = (group.gather(x) for x in (boards, ep_points, ep_moves))
+        keys = group.gather(torch.as_tensor(env_key.astype(np.int64))[None])
+        env_key = keys.cpu().numpy().astype(np.uint32)
+        if group.rank != 0:
+            return
+    leaves = {"['boards']": _host(boards), "['env_key_data']": env_key,
+              "['ep_points']": _host(ep_points), "['ep_moves']": _host(ep_moves)}
     if recorder is not None:
         leaves.update({f"['{k}']": _host(getattr(recorder, k)) for k in CAPT.BEST_FIELDS})
     CKPT.save_checkpoint(ckpt_dir, "env_carry", leaves=leaves,
-                         manifest=dict(train_step=step, lanes=lanes, sharded_d=1,
+                         manifest=dict(train_step=step, lanes=lanes, sharded_d=ranks,
                                        has_recorder=recorder is not None))
 
 
-def load_env_carry(ckpt_dir, lanes: int, cap: int, device, logger) -> tuple:
+def load_env_carry(ckpt_dir, lanes: int, cap: int, device, logger,
+                   group: DataGroup | None = None) -> tuple:
     """(EnvCarry, the recorder's ``best_*`` fields or None) saved by
     :func:`save_env_carry` or by the JAX package; (None, None) when there is
     none or it does not fit (another lane count or mesh layout,
     unreadable), and the caller then keeps its fresh boards. The best
-    episode is restored when the file has one of ``cap`` moves."""
+    episode is restored when the file has one of ``cap`` moves. A rank of a
+    ``group`` of D reads a file of ``sharded_d = D``, taking its slice of
+    the lanes and its row of the keys."""
     if not CKPT.checkpoint_exists(ckpt_dir, "env_carry"):
         return None, None
     try:
@@ -614,16 +771,23 @@ def load_env_carry(ckpt_dir, lanes: int, cap: int, device, logger) -> tuple:
         logger.print(f"env_carry checkpoint is for {manifest.get('lanes')} lanes, "
                      f"run uses {lanes}: starting from fresh boards")
         return None, None
-    if manifest.get("sharded_d", 1) != 1:
+    ranks = 1 if group is None else group.size
+    if manifest.get("sharded_d", 1) != ranks:
         logger.print("env_carry checkpoint mesh layout changed "
-                     f"({manifest.get('sharded_d')} -> 1): starting from fresh boards")
+                     f"({manifest.get('sharded_d', 1)} -> {ranks}): starting from fresh boards")
         return None, None
+    env_key = np.asarray(fields["env_key_data"], np.uint32)
+    if ranks > 1:
+        local = lanes // ranks
+        part = slice(group.rank * local, (group.rank + 1) * local)
+        fields = {k: v[part] for k, v in fields.items() if k != "env_key_data"}
+        env_key = env_key[group.rank]
 
     def put(x, dtype=torch.int32):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
-    carry = R.EnvCarry(put(fields["boards"]), np.asarray(fields["env_key_data"], np.uint32),
-                       put(fields["ep_points"]), put(fields["ep_moves"]))
+    carry = R.EnvCarry(put(fields["boards"]), env_key, put(fields["ep_points"]),
+                       put(fields["ep_moves"]))
     best = None
     if (manifest.get("has_recorder") and "['best_action']" in arrays
             and arrays["['best_action']"].shape[0] == cap):
@@ -631,7 +795,21 @@ def load_env_carry(ckpt_dir, lanes: int, cap: int, device, logger) -> tuple:
     return carry, best
 
 
-def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> dict:
+class QuietLogger:
+    """The logger of a rank other than 0: it prints and logs nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def print(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None, *,
+          group: DataGroup | None = None) -> dict:
     """Run the trainer; returns a summary dict.
 
     ``on_step``, when given, is called after every train step with a dict:
@@ -641,11 +819,31 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
     buffers are written in place by the next step), ``scalars`` (by
     SCALAR_KEYS), ``rollout_s`` (host seconds to run the rollout),
     ``learner_s`` (host seconds from there to the scalars on the host). The
-    run's own work does not depend on it."""
+    run's own work does not depend on it.
+
+    Data parallelism (module docstring): each rank runs this with its
+    ``group`` on the group's device; without one, ``cfg.mesh_data`` must be
+    1 (``parallel/train_step.py::launch`` starts the ranks). Only rank 0
+    logs, prints, and writes
+    checkpoints and viz; every rank runs the same steps and evals on the
+    global statistics, so they stay in lockstep. The packed recorder is off
+    (as in the JAX package's mesh). A run of one process saves and restores
+    the lanes of every rank and fetches an exact-mode best episode from the
+    rank that played it; a run over several processes does neither (fresh
+    boards on resume, no episode)."""
     check_ported(cfg)
-    device = resolve_device(cfg.device)
-    logger = MetricLogger(cfg.log_dir, experiment_name=f"train_{cfg.model_type}")
-    logger.print(f"Using devices: [{device}]")
+    if group is None and cfg.mesh_data > 1:
+        raise ValueError(f"--mesh-data {cfg.mesh_data} runs one train per rank, each with "
+                         "its group: start them with parallel.train_step.launch")
+    ranks = 1 if group is None else group.size
+    rank0 = group is None or group.rank == 0
+    multihost = group is not None and group.num_processes > 1
+    device = resolve_device(cfg.device) if group is None else group.device
+    logger = (MetricLogger(cfg.log_dir, experiment_name=f"train_{cfg.model_type}") if rank0
+              else QuietLogger())
+    logger.print(f"Using devices: [{device}]" if ranks == 1 else
+                 f"Data-parallel ranks: {ranks} ({group.backend}, {group.num_processes} "
+                 f"process(es)); rank 0 on [{device}]")
 
     key = np.array([cfg.seed >> 32, cfg.seed & 0xFFFFFFFF], np.uint32)
     model_cfg, model, labels = build_model(cfg, make_generator("cpu", *key, INIT))
@@ -675,20 +873,17 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
 
     lanes = cfg.packed_lanes
     env_carry = recorder = None
-    capture_on = cfg.packed and cfg.packed_capture
+    capture_on = cfg.packed and cfg.packed_capture and ranks == 1
     if cfg.packed:
         logger.print(f"Packed rollout: {lanes} auto-reset lanes x {cfg.horizon} "
                      f"steps/train-step ({lanes * cfg.horizon} env steps/step, "
                      "100% lane occupancy)")
-        env_key = np.random.SeedSequence((*map(int, key), ENV_KEY)).generate_state(
-            2, np.uint32)
-        env_carry = R.init_env_carry(env_key, lanes, device,
-                                     make_generator(device, *env_key))
+        env_carry = init_sharded_env_carry(group, key, lanes, device)
         if capture_on:
             recorder = CAPT.init_recorder(lanes, cfg.scan_cap, device)
-        if cfg.resume and cfg.checkpoint_dir:
+        if cfg.resume and cfg.checkpoint_dir and not multihost:
             restored, best = load_env_carry(cfg.checkpoint_dir, lanes, cfg.scan_cap,
-                                            device, logger)
+                                            device, logger, group)
             if restored is not None:
                 env_carry = restored
                 logger.print("Resumed packed env carry (lanes continue on-policy)")
@@ -704,23 +899,22 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
         anchor = (copy.deepcopy(model).eval().requires_grad_(False), cfg.anchor_kl)
         logger.print(f"Anchor KL trust region: strength {cfg.anchor_kl} "
                      "vs the run-start policy")
-    teacher = teacher_coefs = None
+    teacher = None
     if cfg.expert_iter and cfg.expert_src:
-        teacher, teacher_coefs = load_teacher(cfg, device)
+        teacher = load_teacher(cfg, device)
         logger.print(f"Expert iteration: FROZEN depth-{cfg.expert_depth} expectimax "
-                     f"teacher from {cfg.expert_src} (sigma={teacher_coefs.sigma:.1f}, "
-                     f"mu={teacher_coefs.mu:.1f})")
+                     f"teacher from {cfg.expert_src} (sigma={teacher[1].sigma:.1f}, "
+                     f"mu={teacher[1].mu:.1f})")
     elif cfg.expert_iter:
         logger.print(f"Expert iteration: depth-{cfg.expert_depth} expectimax rollout, "
                      "imitation + value objective")
 
-    optimize_fn = U.make_optimize_fn(model, labels, opt_cfg, cfg.batch_size,
-                                     cfg.ppo_epochs, kl_diagnostic=cfg.kl_diagnostic,
-                                     objective=objective(cfg), anchor=anchor)
-    process_fn = make_process_fn(cfg, optimize_fn)
+    step_fn = make_sharded_train_step(group, cfg, model, labels, opt_cfg, anchor=anchor,
+                                      teacher=teacher)
     eval_fn = make_eval_fn(cfg) if cfg.eval_freq else None
     heur_fn = make_episode_heuristics_fn()
     mono_fn = make_packed_mono_fn() if capture_on else None
+    local_games = cfg.num_episodes // ranks
 
     # Sanity forward on a fresh board (the reference prints it).
     with torch.no_grad():
@@ -732,40 +926,26 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
     def save_train_state(step: int) -> None:
         if not cfg.checkpoint_dir:
             return
-        CKPT.save_checkpoint(
-            cfg.checkpoint_dir, "train_state",
-            leaves=train_state_leaves(model, opt_state, moments, key),
-            manifest=dict(train_step=step, highest_score=int(highest_score),
-                          best_eval_avg=float(best_eval_avg), emas=emas,
-                          current_beta=float(current_beta), config=asdict(cfg),
-                          model_config=model_cfg.to_dict()))
-        if cfg.packed:
-            save_env_carry(cfg.checkpoint_dir, env_carry, recorder, step, lanes)
+        if rank0:
+            CKPT.save_checkpoint(
+                cfg.checkpoint_dir, "train_state",
+                leaves=train_state_leaves(model, opt_state, moments, key),
+                manifest=dict(train_step=step, highest_score=int(highest_score),
+                              best_eval_avg=float(best_eval_avg), emas=emas,
+                              current_beta=float(current_beta), config=asdict(cfg),
+                              model_config=model_cfg.to_dict()))
+        if cfg.packed and not multihost:
+            save_env_carry(cfg.checkpoint_dir, env_carry, recorder, step, lanes, group)
 
     t_start = time.time()
     env_steps_total = 0
     for train_step in range(start_step, cfg.steps):
         t0 = time.perf_counter()
         env_carry_in = env_carry
-        if cfg.packed:
-            out = R.rollout_packed(
-                model, env_carry_in, cfg.horizon,
-                action_generator=make_generator(device, *key, train_step, ACTION),
-                env_generator=make_generator(device, *env_carry_in.env_key, train_step),
-                recorder=recorder)
-            traj, env_carry = out[:2]
-            recorder = out[2] if capture_on else None
-        else:
-            traj = R.rollout(
-                model, cfg.num_episodes, cfg.rollout_cap,
-                action_generator=make_generator(device, *key, train_step, ACTION),
-                env_generator=make_generator(device, *key, train_step, EXACT_ENV),
-                **expert_args(cfg, teacher, teacher_coefs, moments, train_step + 1))
-        t1 = time.perf_counter()
-        gens = {s: make_generator(device, *key, train_step, s)
-                for s in (AUGMENT, PERMUTE, DROPOUT)}
-        moments, out = process_fn(opt_state, traj, moments, train_step + 1,
-                                  current_beta, generators=gens)
+        res = step_fn(opt_state, moments, key, train_step, current_beta, env_carry, recorder)
+        traj, env_carry, recorder, moments, out = (res.traj, res.carry, res.recorder,
+                                                   res.moments, res.outputs)
+        t1 = t0 + res.rollout_s
         # The one transfer of the step's scalars to the host.
         sc = dict(zip(SCALAR_KEYS, out["scalars"].cpu().tolist()))
         t2 = time.perf_counter()
@@ -792,16 +972,19 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
         should_print = train_step % cfg.print_frequency == 0
         logger.log(metrics, step=train_step, verbose=should_print)
 
-        # The best episode: the step's best lane (exact mode) or the
-        # recorder's committed episode (packed mode with capture).
-        fetchable = not cfg.packed or capture_on
+        # The best episode: the step's best game (exact mode; fetched from
+        # the rank that played it) or the recorder's committed episode
+        # (packed mode with capture). Every rank takes the same branches.
+        fetchable = (not cfg.packed or capture_on) and not multihost
         if cfg.packed:
             def fetch(heur=None):
                 return fetch_packed_episode(recorder, heur_fn=heur, mono_fn=mono_fn)
         else:
             def fetch(heur=None):
-                return fetch_episode(traj, out["advantage"], int(sc["best_idx"]),
-                                     heur_fn=heur)
+                owner, idx = divmod(int(sc["best_idx"]), local_games)
+                mine = group is None or group.rank == owner
+                ep = fetch_episode(traj, out["advantage"], idx, heur_fn=heur) if mine else None
+                return ep if group is None else group.broadcast_object(ep, owner)
         if new_high and fetchable:
             best_game_episode = fetch() or best_game_episode
         if (should_print or (new_high and cfg.viz_dir)) and fetchable:
@@ -812,7 +995,7 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
                 if cfg.show_last_steps > 0:
                     printing.print_last_steps(logger, episode, cfg.show_last_steps)
                 printing.print_final_state(logger, episode)
-            if episode is not None and cfg.viz_dir:
+            if episode is not None and cfg.viz_dir and rank0:
                 viz_export.export_episode_visualization(
                     cfg.viz_dir, train_step, episode, cfg.reward_weights, cfg.gamma)
 
@@ -828,10 +1011,12 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
                          f"{em['pct_1024']:.1f}%, 2048: {em['pct_2048']:.1f}%")
             if em["avg_score"] > best_eval_avg and cfg.checkpoint_dir:
                 best_eval_avg = em["avg_score"]
-                CKPT.save_checkpoint(
-                    cfg.checkpoint_dir, "best_model", leaves=_param_leaves(model),
-                    manifest=dict(config=model_cfg.to_dict(), model_type=cfg.model_type,
-                                  eval_avg_score=best_eval_avg, train_step=train_step))
+                if rank0:
+                    CKPT.save_checkpoint(
+                        cfg.checkpoint_dir, "best_model", leaves=_param_leaves(model),
+                        manifest=dict(config=model_cfg.to_dict(),
+                                      model_type=cfg.model_type,
+                                      eval_avg_score=best_eval_avg, train_step=train_step))
                 logger.print(f"New best model saved (avg score: {best_eval_avg:.1f}) "
                              f"to {cfg.checkpoint_dir}/best_model.npz")
 
@@ -854,7 +1039,7 @@ def train(cfg: TrainConfig, on_step: Callable[[dict], None] | None = None) -> di
         # step drives the moments' bias correction).
         save_train_state(cfg.steps - 1)
 
-    if cfg.export_demo:
+    if cfg.export_demo and rank0:
         from .evaluate import load_search_coefs
         from .export import export_demo_assets
 

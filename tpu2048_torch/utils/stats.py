@@ -13,11 +13,19 @@ the reference's metric names, quirks included:
 The episode statistics come from the lanes' summaries in exact-episodes
 mode (``total_points`` and ``valid[0]``) and from completion records in
 packed mode.
+
+Data-parallel ranks pass their ``group`` (the JAX package's ``axis_name``):
+every statistic is then global. The weighted sums are added over the ranks
+(the means in one collective, then the second-pass variances in another),
+the extrema maxed and minned in one, and the episode scores (with their
+mask) gathered in rank order before the average and the median.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import DataGroup, all_extrema, all_sum
 
 DSTAT_KEYS = (
     "samples", "augmented_samples", "reward_mean", "reward_var",
@@ -31,7 +39,8 @@ DSTAT_KEYS = (
 def device_stats(traj, adv: dict, aug_valid: torch.Tensor, aug_points: torch.Tensor,
                  episode_scores: torch.Tensor | None = None,
                  episode_mask: torch.Tensor | None = None,
-                 ep_start_mask: torch.Tensor | None = None) -> dict:
+                 ep_start_mask: torch.Tensor | None = None,
+                 group: DataGroup | None = None) -> dict:
     """0-d tensors keyed by ``DSTAT_KEYS``. ``traj``: a Trajectory or a
     PackedTrajectory; ``adv``: the dict of ``advantage.compute`` or
     ``compute_packed``; ``aug_*``: the augmented rows' validity and points.
@@ -39,20 +48,26 @@ def device_stats(traj, adv: dict, aug_valid: torch.Tensor, aug_points: torch.Ten
     Packed mode passes ``episode_scores``/``episode_mask`` (flat over the
     (T, N) grid): completion records, in place of ``traj.total_points``;
     and ``ep_start_mask`` (flat): the steps that began an episode, whose
-    raw return is the episode's G_0, in place of ``traj.valid[0]``."""
+    raw return is the episode's G_0, in place of ``traj.valid[0]``.
+    ``group``: the statistics over every rank's chunk."""
     w = traj.valid.to(torch.float32)
-    n = w.sum().clamp(min=1.0)
-
-    def wstats(x):
-        mean = (x * w).sum() / n
-        return mean, ((x - mean).square() * w).sum() / n
-
-    reward_mean, reward_var = wstats(adv["reward"])
-    adv_mean, adv_var = wstats(adv["advantage"])
-    _, future_var = wstats(adv["G_raw"])
-    fnorm_mean, fnorm_var = wstats(adv["G_norm"])
-    _, v_var = wstats(traj.value_pred)
-    zero_reward_pct = ((adv["reward"] == 0.0) * w).sum() / n * 100.0
+    # G_0 of each episode: the raw return of its first move.
+    if ep_start_mask is not None:
+        starts, g_raw = ep_start_mask, adv["G_raw"].reshape(-1)
+    else:
+        starts, g_raw = traj.valid[0], adv["G_raw"][0]
+    ep_returns = torch.where(starts, g_raw, 0.0)
+    fields = (adv["reward"], adv["advantage"], adv["G_raw"], adv["G_norm"], traj.value_pred)
+    sums = all_sum(group, w.sum(), *((x * w).sum() for x in fields),
+                   ((adv["reward"] == 0.0) * w).sum(), (adv["advantage"].square() * w).sum(),
+                   aug_valid.sum(), ep_returns.sum(), starts.to(torch.float32).sum())
+    n = sums[0].clamp(min=1.0)
+    means = [s / n for s in sums[1:6]]
+    sq = all_sum(group, *(((x - m).square() * w).sum() for x, m in zip(fields, means)))
+    (reward_mean, adv_mean, _, fnorm_mean, _), variances = means, [s / n for s in sq]
+    reward_var, adv_var, future_var, fnorm_var, v_var = variances
+    zero_sum, adv_sq_sum, aug_count, ep_return_sum, n_starts = sums[6:]
+    zero_reward_pct = zero_sum / n * 100.0
 
     # Episode scores, the augmented pseudo-episode among them. The median
     # sorts non-completions to +inf and indexes by the true count.
@@ -60,6 +75,9 @@ def device_stats(traj, adv: dict, aug_valid: torch.Tensor, aug_points: torch.Ten
     if episode_scores is not None:
         smask = torch.cat([episode_mask, episode_mask.new_ones(1)])
         scores = torch.cat([episode_scores, aug_score[None]]).to(torch.float32)
+        if group is not None and group.size > 1:
+            both = group.gather(torch.stack([scores, smask.to(torch.float32)], 1))
+            scores, smask = both[:, 0], both[:, 1] > 0
         n_done = smask.to(torch.float32).sum().clamp(min=1.0)
         avg_score = torch.where(smask, scores, 0.0).sum() / n_done
         ordered = torch.sort(torch.where(smask, scores, float("inf"))).values
@@ -67,39 +85,40 @@ def device_stats(traj, adv: dict, aug_valid: torch.Tensor, aug_points: torch.Ten
                                      max=ordered.shape[0] - 1)]
         median_score = torch.where(torch.isfinite(median), median, 0.0)
     else:
-        scores = torch.sort(torch.cat([traj.total_points, aug_score[None]])
-                            .to(torch.float32)).values
+        scores = torch.cat([traj.total_points, aug_score[None]]).to(torch.float32)
+        if group is not None:
+            scores = group.gather(scores)
+        scores = torch.sort(scores).values
         n_ep = scores.shape[0]
         avg_score = scores.mean()
         median_score = (scores[n_ep // 2] if n_ep % 2 == 1
                         else (scores[n_ep // 2 - 1] + scores[n_ep // 2]) / 2.0)
 
-    # G_0 of each episode: the raw return of its first move.
-    if ep_start_mask is not None:
-        starts, g_raw = ep_start_mask, adv["G_raw"].reshape(-1)
-    else:
-        starts, g_raw = traj.valid[0], adv["G_raw"][0]
-    ep_returns = torch.where(starts, g_raw, 0.0)
-    avg_episode_return = ep_returns.sum() / starts.to(torch.float32).sum().clamp(min=1.0)
+    avg_episode_return = ep_return_sum / n_starts.clamp(min=1.0)
 
     big = 1e30
+    (adv_max, g_max), (adv_min, g_min) = all_extrema(
+        group, (torch.where(traj.valid, adv["advantage"], -big).max(),
+                torch.where(traj.valid, adv["G_norm"], -big).max()),
+        (torch.where(traj.valid, adv["advantage"], big).min(),
+         torch.where(traj.valid, adv["G_norm"], big).min()))
     fnorm_std, adv_std = fnorm_var.sqrt(), adv_var.sqrt()
     zero = torch.zeros_like(fnorm_std)
     return dict(
         samples=n,
-        augmented_samples=aug_valid.sum().to(torch.float32),
+        augmented_samples=aug_count.to(torch.float32),
         reward_mean=reward_mean,
         reward_var=reward_var,
         zero_reward_pct=zero_reward_pct,
         advantage_mean=adv_mean,
         advantage_var=adv_var,
-        advantage_l2=(adv["advantage"].square() * w).sum().sqrt(),
-        adv_min=torch.where(traj.valid, adv["advantage"], big).min(),
-        adv_max=torch.where(traj.valid, adv["advantage"], -big).max(),
+        advantage_l2=adv_sq_sum.sqrt(),
+        adv_min=adv_min,
+        adv_max=adv_max,
         G_norm_mean=fnorm_mean,
         G_norm_std=fnorm_std,
-        G_norm_min=torch.where(traj.valid, adv["G_norm"], big).min(),
-        G_norm_max=torch.where(traj.valid, adv["G_norm"], -big).max(),
+        G_norm_min=g_min,
+        G_norm_max=g_max,
         G_raw_std=future_var.sqrt(),
         V_std=v_var.sqrt(),
         A_std=adv_std,
