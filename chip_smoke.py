@@ -114,13 +114,28 @@ raises and the run exits non-zero:
            key [0, 20260818] and the source's parameters
   models   python -m tpu2048_torch.models on the card: shapes, finite
            logits, the JAX package's parameter counts
+  scaling  scripts/torch_bench_scaling.py at the JAX harness's defaults
+           (MLP H=196x2, 64 games or lanes a rank), exact and packed, D=1
+           (in this process) and D=2 (two spawned ranks) in one call: on one
+           card every rank on it over Gloo, which measures no scaling; on a
+           machine of two one a card over NCCL. Env steps/s of 3 timed steps
+           after 2 warm-up ones, each from the initial parameters, their
+           spread, the efficiency against D=1, each row's merge launches and
+           env steps against its steps' trips
+  prune_bias  scripts/torch_prune_bias.py on checkpoints_expA at depth 3,
+           32 boards of its greedy games: the moves top-k pruning (k = 2, 3)
+           changes and the root scores' shift; scores finite exactly where
+           legal, no pruned score above the exact one, the peak memory
+           within the printed cap, the first board's k=2 scores == the
+           CPU's, the searches' merge launches exact
   kernels  one JSON line per the port's kernels: check, launches (by
            phase), times (at the served batch, and per timed N with the
            launch floor and the host enqueue)
 
 The kernel launch counts are set to 0 just before the serve phase and read
-after the models phase: they count the main path only (train_dp's spawned
-ranks count in their own processes and report theirs). The last line is
+after the prune_bias phase: they count the main path only (the spawned
+ranks of train_dp and scaling count in their own processes and report
+theirs). The last line is
 {"ok": true, "device": {...}}. Imports torch, numpy, the standard library and
 the port; never JAX and never the tpu2048 package.
 """
@@ -165,6 +180,8 @@ from tpu2048_torch.train.export import export_demo_assets
 from tpu2048_torch.train.evaluate import (evaluate_checkpoint, load_model_checkpoint,
                                           load_search_coefs, run_eval)
 from tpu2048_torch.utils.profiling import device_ms
+from scripts import torch_bench_scaling as bench_scaling
+from scripts import torch_prune_bias as prune_bias
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "checkpoints_expG"
@@ -367,6 +384,25 @@ DP_MIN_EPISODE_AVG = 2500
 REMOTE_LAUNCHES: dict = {}
 # Host seconds of each step of train_resume, beside train_dp's.
 STEP_SECONDS: dict = {}
+# scaling: scripts/torch_bench_scaling.py at the JAX harness's defaults (64
+# games or lanes a rank, exact games to 256 moves, packed horizon 256,
+# minibatches of 128 rows a rank, MLP H=196x2), D = 1 and 2 in both modes in
+# one call of its ``run``: on a machine of one card every rank on it over
+# Gloo (D = 2 then measures no scaling), on a machine of two one a card over
+# NCCL.
+SCALING_MODES = ("exact", "packed")
+SCALING_ENVS = 64
+SCALING_HORIZON = 256
+SCALING_REPEATS = 3
+# prune_bias: scripts/torch_prune_bias.py on checkpoints_expA at depth 3:
+# 32 boards of its greedy games (the JAX script's default is 64), the
+# exact inner max against prune_k 2 and 3; the first board's k = 2 scores
+# against a CPU copy of the model to SEARCH_TOL (the CPU takes seconds a
+# board at depth 3: the exact search is held to the JAX package's on the
+# CPU by tests/test_torch_prune_bias.py).
+PRUNE_CHECKPOINT = ROOT / "checkpoints_expA"
+PRUNE_BOARDS = 32
+PRUNE_DEPTH = 3
 
 
 def phase(name: str, t0: float, text: str) -> None:
@@ -1295,12 +1331,15 @@ def train_exact_phase(by_phase: dict, device="cuda") -> None:
           f"{by_phase['train_exact']}")
 
 
-def search_merges(depth: int) -> int:
+def search_merges(depth: int, pruned: bool = False) -> int:
     """Merge launches of one ``expectimax_scores`` call handed the root's
-    moves: the leaves' ``all_moves`` at depth 1; deeper, each of the 32
-    spawn slots runs ``state_values``, its own ``all_moves`` and its
-    subtree."""
-    return 1 if depth <= 1 else NUM_SPAWNS * (1 + search_merges(depth - 1))
+    moves (one handed none adds its own ``all_moves``): the leaves'
+    ``all_moves`` at depth 1; deeper, each of the 32 spawn slots runs
+    ``state_values``: its own ``all_moves``, under pruning from depth 3 the
+    leaves of a 1-ply search, and its subtree."""
+    if depth <= 1:
+        return 1
+    return NUM_SPAWNS * (1 + (pruned and depth >= 3) + search_merges(depth - 1, pruned))
 
 
 def check_expert_traj(traj, n_expert: int) -> tuple:
@@ -1750,6 +1789,110 @@ def models_phase(by_phase: dict, device="cuda") -> None:
           f"{by_phase['models']}")
 
 
+def scaling_rows_text(rows: list) -> str:
+    return "; ".join(
+        f"{r['mode']} D={r['mesh']} ({r['backend']}{', shared card' if r['shared_card'] else ''}): "
+        f"{r['env_steps_per_s']:.1f} env steps/s (runs "
+        + ", ".join(f"{x:.1f}" for x in r["env_steps_per_s_runs"])
+        + f"; spread {r['spread'] * 100:.2f}%; host s a step "
+        + ", ".join(f"{x['seconds']:.3f}" for x in r["runs"])
+        + f", the first {bench_scaling.WARMUP} untimed), efficiency "
+        f"{r['weak_scaling_efficiency']:.4f} against {r['mesh']}x D=1's env steps/s, merge "
+        f"launches {r['launches']}" for r in rows)
+
+
+def check_scaling_row(r: dict, envs: int) -> None:
+    """A row's step counts and merge launches, from its runs: packed, two
+    launches a trip of every rank; exact, one a trip plus one (each rank
+    runs its own games: the launches lie between one rank's and every
+    rank's count of the longest game's trips)."""
+    steps = bench_scaling.WARMUP + SCALING_REPEATS
+    runs = r["runs"]
+    if len(runs) != steps or sum(x["timed"] for x in runs) != SCALING_REPEATS:
+        raise AssertionError(f"{r['mode']} D={r['mesh']}: {len(runs)} steps")
+    lanes = envs * r["mesh"]
+    if r["mode"] == "packed":
+        want = r["ranks"] * 2 * SCALING_HORIZON * steps
+        if r["launches"] != want or any(x["env_steps"] != lanes * SCALING_HORIZON
+                                        for x in runs):
+            raise AssertionError(f"packed D={r['mesh']}: {r['launches']} merge launches "
+                                 f"(expected {want}), env steps {[x['env_steps'] for x in runs]}")
+    else:
+        one = sum(x["trips"] + 1 for x in runs)
+        if not one <= r["launches"] <= r["ranks"] * one or r["ranks"] == 1 and r["launches"] != one:
+            raise AssertionError(f"exact D={r['mesh']}: {r['launches']} merge launches for "
+                                 f"trips {[x['trips'] for x in runs]}")
+        if any(not lanes <= x["env_steps"] <= lanes * x["trips"] for x in runs):
+            raise AssertionError(f"exact D={r['mesh']}: env steps {runs}")
+    if not all(math.isfinite(x) and x > 0 for x in r["env_steps_per_s_runs"]):
+        raise AssertionError(f"{r['mode']} D={r['mesh']}: rates {r['env_steps_per_s_runs']}")
+
+
+def scaling_phase(by_phase: dict, device="cuda", envs: int = SCALING_ENVS) -> None:
+    """scripts/torch_bench_scaling.py at D = 1 (in this process) and D = 2
+    (spawned ranks), both on the one card over Gloo when there is one card;
+    each row's launches and env steps checked against its runs."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    share = torch.device(device).type == "cuda" and torch.cuda.device_count() < 2
+    rows = bench_scaling.run([1, 2], SCALING_MODES, envs_per_device=envs,
+                             horizon=SCALING_HORIZON, repeats=SCALING_REPEATS, device=device,
+                             share_card=share, say=lambda s: None)
+    for r in rows:
+        check_scaling_row(r, envs)
+    local = sum(r["launches"] for r in rows if r["mesh"] == 1)
+    if local != merge.launches - before:
+        raise AssertionError(f"D=1 rows' {local} merge launches vs "
+                             f"{merge.launches - before} counted here")
+    REMOTE_LAUNCHES["scaling"] = sum(r["launches"] for r in rows if r["mesh"] > 1)
+    by_phase["scaling"] = local + REMOTE_LAUNCHES["scaling"]
+    phase("scaling", t0, f"scripts/torch_bench_scaling.py, MLP H=196x2, {envs} games or "
+          f"lanes a rank, {bench_scaling.WARMUP} warm-up + {SCALING_REPEATS} timed steps a "
+          "row" + (f" [{bench_scaling.NO_SCALING}]" if share else "") + ": "
+          + scaling_rows_text(rows) + f"; merge launches {by_phase['scaling']}")
+
+
+def prune_bias_phase(by_phase: dict, device="cuda", n: int = PRUNE_BOARDS,
+                     depth: int = PRUNE_DEPTH) -> None:
+    """scripts/torch_prune_bias.py on PRUNE_CHECKPOINT: the exact and pruned
+    searches' scores where legal, pruning never raising a score, the peak
+    memory within the cap, the first board's k=2 scores against the CPU,
+    the launches."""
+    t0 = time.perf_counter()
+    before = merge.launches
+    lines = []
+    out = prune_bias.prune_bias(PRUNE_CHECKPOINT, n, depth, device, say=lines.append)
+    sync(device)
+    by_phase["prune_bias"] = merge.launches - before
+    legal, exact = out["legal"], out["exact"]
+    scored = [exact] + list(out["pruned"].values())
+    if any(not np.array_equal(np.isfinite(s), legal) for s in scored) or not legal.any(1).all():
+        raise AssertionError("prune_bias: scores finite other than where legal")
+    for k, p in out["pruned"].items():  # a max over fewer actions, positive weights
+        if (p[legal] > exact[legal] + SEARCH_TOL * np.maximum(1.0, np.abs(exact[legal]))).any():
+            raise AssertionError(f"prune_k={k}: a pruned score above the exact one")
+    if out["peak_bytes"] is not None and out["peak_bytes"] > out["cap_bytes"]:
+        raise AssertionError(f"peak {out['peak_bytes']} B above the cap {out['cap_bytes']} B")
+    cpu_model = load_model_checkpoint(str(PRUNE_CHECKPOINT), device="cpu")[0]
+    coefs = load_search_coefs(str(PRUNE_CHECKPOINT))
+    cpu = prune_bias.root_scores(cpu_model, out["boards"][:1], coefs, depth, 2, 1)
+    cpu_err = assert_close("prune_bias k=2 card vs CPU", np.where(legal[:1], out["pruned"][2][:1],
+                                                                   np.nan),
+                           np.where(legal[:1], cpu, np.nan), SEARCH_TOL)
+    chunks = -(-len(out["boards"]) // out["chunk"])
+    search = chunks * (1 + search_merges(depth)
+                       + len(out["pruned"]) * (1 + search_merges(depth, pruned=True)))
+    rollout = by_phase["prune_bias"] - search - 1  # and one for the boards' legality
+    if not 2 <= rollout <= prune_bias.GAME_CAP + 1:
+        raise AssertionError(f"{by_phase['prune_bias']} merge launches: {search} expected "
+                             f"in the searches and 1 in the legality, {rollout} left for "
+                             "the greedy games")
+    phase("prune_bias", t0, " | ".join(lines) + f" | k=2 card == CPU on the first board (max "
+          f"|diff| {cpu_err:.3g}, tol {SEARCH_TOL}); pruned <= exact; "
+          f"merge launches {by_phase['prune_bias']} ({rollout} in the greedy games, {search} "
+          f"in {chunks} chunk(s) of searches)")
+
+
 def main() -> None:
     # 1. device
     t0 = time.perf_counter()
@@ -1901,8 +2044,10 @@ def main() -> None:
     play_phase(by_phase)
     warmstart_phase(by_phase)
     models_phase(by_phase)
+    scaling_phase(by_phase)
+    prune_bias_phase(by_phase)
 
-    # 19. kernels
+    # 21. kernels
     t0 = time.perf_counter()
     main_launches = merge.launches + sum(REMOTE_LAUNCHES.values())
     if main_launches != sum(by_phase.values()):

@@ -111,10 +111,11 @@ def shard(traj, d: int, n: int):
     return type(traj)(**out)
 
 
-def rank_draws(jcfg: dict, key, traj, local: int, carry_boards=None) -> tuple:
-    """(draws, plan, perm) of each JAX shard for the port's ranks."""
+def rank_draws(jcfg: dict, key, traj, local: int, carry_boards=None, ranks: int = 2) -> tuple:
+    """(draws, plan, perm) of each of the ``ranks`` JAX shards for the
+    port's ranks."""
     draws, plans, perms = [], [], []
-    for d in range(2):
+    for d in range(ranks):
         _, k_proc = jax.random.split(jax.random.fold_in(key, d))
         part = shard(traj, d, local)
         if carry_boards is None:

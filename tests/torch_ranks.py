@@ -84,6 +84,38 @@ def replay(group, cfg: dict, state_dict: dict, train_step: int, beta: float, dra
                 steps_executed=out.traj.steps_executed)
 
 
+def bench_replay(group, args: dict, overrides: dict, state_dict: dict, draws: list,
+                 plans: list, perms: list, carries: list | None = None) -> dict:
+    """One step of scripts/torch_bench_scaling.py's harness (its config of
+    ``bench_config(group.size, **args)`` with ``overrides``, and its
+    ``make_step``) on this rank's replayed JAX draws, from ``state_dict``;
+    and whether ``same_on_every_rank`` holds, then after rank 1 nudges a
+    parameter."""
+    import dataclasses
+
+    from scripts import torch_bench_scaling as TBS
+
+    cfg = dataclasses.replace(TBS.bench_config(group.size, **args), **overrides)
+    model, step, opt_state = TBS.make_step(group, cfg, state_dict)
+    r = group.rank
+    carry = None
+    if carries is not None:
+        boards, points, moves = (torch.as_tensor(x) for x in carries[r])
+        carry = R.EnvCarry(boards, np.zeros(2, np.uint32), points, moves)
+    out = step(opt_state, A.RtgMoments.initial(), TBS.INIT_KEY, TBS.TRAIN_STEP, TBS.BETA,
+               carry, rollout_draws={k: torch.as_tensor(v) for k, v in draws[r].items()},
+               aug_plan=AUG.AugPlan(*(torch.as_tensor(x) for x in plans[r])),
+               perm_draws=torch.as_tensor(perms[r]))
+    params, same = params_of(model), TBS.same_on_every_rank(group, model)
+    if r == 1:
+        with torch.no_grad():
+            next(model.parameters()).view(-1)[0] += 1e-6
+    return dict(params=params, scalars=scalars_of(out),
+                moments=[float(m) for m in out.moments],
+                steps_executed=out.traj.steps_executed, same=same,
+                same_after_nudge=TBS.same_on_every_rank(group, model))
+
+
 def critic(group, cfg: dict, critics: tuple) -> list:
     """The parameters after one step from the same start at each critic
     strength."""

@@ -8,7 +8,9 @@ a process. :func:`launch` starts them: ``--mesh-data D`` on one host starts
 D local ranks (rank r on ``cuda:r`` over NCCL, or on the CPU over Gloo);
 with ``--num-processes P --process-id i --coordinator-address A`` each
 process starts D/P of them, global rank ``i * (D/P) + local``. Each rank
-joins the process group (``parallel/mesh.py``) and runs ``train`` with it.
+joins the process group (``parallel/mesh.py``) and runs ``train`` with it,
+or the ``body`` it is given (``scripts/torch_bench_scaling.py`` times the
+step that way).
 """
 
 from __future__ import annotations
@@ -32,35 +34,52 @@ def _summary(out: dict) -> dict:
     return keep
 
 
+def train_body(cfg, group) -> dict:
+    """A rank's default body: ``train`` with its group, summarised."""
+    return _summary(L.train(cfg, group=group))
+
+
 def _rank_main(local_rank: int, cfg, url: str, procs: int, process_id: int,
-               local: int) -> dict:
+               local: int, body, share_card: bool):
     ranks = procs * local
-    device = (torch.device("cuda", local_rank) if resolve_device(cfg.device).type == "cuda"
+    cuda = resolve_device(cfg.device).type == "cuda"
+    device = (torch.device("cuda", 0 if share_card else local_rank) if cuda
               else torch.device("cpu"))
     if device.type == "cpu":
         torch.set_num_threads(1)  # the ranks share the host's cores
     group = init_distributed(url, procs, process_id, rank=process_id * local + local_rank,
-                             world_size=ranks, device=device)
+                             world_size=ranks, device=device,
+                             backend="gloo" if share_card else None)
     try:
-        return _summary(L.train(cfg, group=group))
+        return body(cfg, group)
     finally:
         shutdown()
 
 
 def launch(cfg, coordinator_address: str | None = None, num_processes: int | None = None,
-           process_id: int | None = None, timeout_s: float | None = None) -> dict:
+           process_id: int | None = None, timeout_s: float | None = None, *,
+           body=train_body, share_card: bool = False):
     """Train ``cfg`` data-parallel over D ranks (``--mesh-data``, or the
     process count when that is left at 1): this process's D/P local ranks,
-    each running ``train`` with its group (spawned when there is more than
-    one). Returns the summary of this process's first rank (rank 0's on
-    process 0): ``train``'s, the model as ``params`` (numpy) and the moments
-    as floats. Local ranks that are still running after ``timeout_s``
-    (None: no limit; the collectives' own timeout still ends a hung rank)
-    are killed and the call raises ``TimeoutError``.
+    each running ``body(cfg, group)`` with its group (spawned when there is
+    more than one). Returns what this process's first rank's body returns
+    (rank 0's on process 0). The default body trains: its summary is
+    ``train``'s, the model as ``params`` (numpy) and the moments as floats.
+    Another ``body`` must pickle (a module-level function, or a
+    ``functools.partial`` of one: it is sent to the spawned ranks) and
+    return what pickles without torch tensors. Local
+    ranks that are still running after ``timeout_s`` (None: no limit; the
+    collectives' own timeout still ends a hung rank) are killed and the
+    call raises ``TimeoutError``.
+
+    ``share_card`` puts every local rank of a CUDA run on the one card
+    ``cuda:0``, joined over Gloo: it exercises D ranks on a machine of one
+    card and measures no scaling across cards.
 
     Raises before anything starts: ``ValueError`` unless D divides by the
     process count and the lanes (or games) and the batch by D;
-    ``RuntimeError`` for a CUDA run without a card for each local rank."""
+    ``RuntimeError`` for a CUDA run without a card for each local rank (or
+    without any card, under ``share_card``)."""
     procs = max(num_processes or 1, 1)
     if cfg.mesh_data == 1:
         cfg = dataclasses.replace(cfg, mesh_data=procs)
@@ -70,7 +89,8 @@ def launch(cfg, coordinator_address: str | None = None, num_processes: int | Non
     L.shard_sizes(cfg, ranks)
     L.check_ported(cfg)
     local = ranks // procs
-    if resolve_device(cfg.device).type == "cuda" and local > torch.cuda.device_count():
+    cards = 1 if share_card else local
+    if resolve_device(cfg.device).type == "cuda" and cards > torch.cuda.device_count():
         raise RuntimeError(
             f"--mesh-data {ranks} over {procs} process(es) puts {local} ranks on this "
             f"host, which has {torch.cuda.device_count()} CUDA device(s): one rank a card")
@@ -78,7 +98,7 @@ def launch(cfg, coordinator_address: str | None = None, num_processes: int | Non
         raise ValueError("--num-processes > 1 needs --coordinator-address host:port")
     with tempfile.TemporaryDirectory() as tmp:
         url = coordinator_address or f"file://{tmp}/rendezvous"
-        args = (cfg, url, procs, process_id or 0, local)
+        args = (cfg, url, procs, process_id or 0, local, body, share_card)
         if local == 1:
             return _rank_main(0, *args)
         return spawn(_rank_main, local, args, timeout_s=timeout_s)[0]
